@@ -1,0 +1,38 @@
+"""carry the py_driver_2d grid and states across from numpy.
+
+The grid holds the model's parameters -- velocities, diffusivities and
+metric terms -- so feeding both packages the same fields makes their
+results comparable value for value.  The JAX package's Grid2D crosses as
+`{k: np.asarray(v) for k, v in grid._asdict().items()}`; a state crosses as
+one numpy array (e.g. the `x` of a JAX in-core checkpoint).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .physics import Grid2D
+
+
+def grid_from_numpy(fields, *, device, dtype) -> Grid2D:
+    """Grid2D from a {field name: numpy array} dict holding every field"""
+    missing = set(Grid2D._fields) - set(fields)
+    extra = set(fields) - set(Grid2D._fields)
+    if missing or extra:
+        raise ValueError(
+            f"grid fields differ from Grid2D: missing {sorted(missing)}, "
+            f"unexpected {sorted(extra)}"
+        )
+    return Grid2D(
+        **{
+            name: torch.tensor(np.asarray(fields[name]), dtype=dtype,
+                               device=device)
+            for name in Grid2D._fields
+        }
+    )
+
+
+def state_from_numpy(x, *, device, dtype):
+    """state tensor (e.g. (2, nz, ny) for iage) from a numpy array"""
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -1,0 +1,155 @@
+"""the port's IMEX year (plain PyTorch) against the JAX package's scan year
+and its Pallas kernel (interpret mode), on the 8x6 grid with 24 steps"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from newton_krylov_ooc_tpu.models.py_driver_2d import (  # noqa: E402
+    physics as jax_physics,
+)
+from newton_krylov_ooc_tpu.ops.imex import (  # noqa: E402
+    cn_vertical_increment as jax_cn_increment,
+)
+from newton_krylov_ooc_tpu.ops.imex import imex_year as jax_imex_year  # noqa: E402
+from newton_krylov_ooc_tpu.ops.imex_pallas import (  # noqa: E402
+    build_iage_year_pallas_v2,
+)
+from newton_krylov_ooc_tpu_torch.cli.incore_spinup import (  # noqa: E402
+    MODELINFO,
+    build_axes,
+)
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d import physics  # noqa: E402
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (  # noqa: E402
+    SURF_SLOW_FACTOR,
+    surf_restore_rate,
+)
+from newton_krylov_ooc_tpu_torch.ops import imex_cuda  # noqa: E402
+from newton_krylov_ooc_tpu_torch.ops.imex import (  # noqa: E402
+    cn_vertical_increment,
+    imex_year,
+)
+
+torch.set_num_threads(1)
+
+NZ, NY, N_STEPS = 8, 6, 24
+CPU = torch.device("cpu")
+YEAR = physics.SEC_PER_YEAR
+SPAN = (0.0, YEAR)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    depth, ypos = build_axes(NZ, NY)
+    rate = surf_restore_rate(depth)
+    diag = np.zeros((2, NZ, NY))
+    diag[0, 0, :] = -rate
+    diag[1, 0, :] = -SURF_SLOW_FACTOR * rate
+    rng = np.random.default_rng(11)
+    y0 = rng.uniform(0.0, 2.0, (2, NZ, NY))
+    return depth, ypos, diag, y0
+
+
+def _grid(depth, ypos, dtype):
+    return physics.make_grid(depth, ypos, MODELINFO, device=CPU, dtype=dtype)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def test_cn_increment_matches_jax(setup):
+    depth, ypos, diag, y0 = setup
+    jgrid = jax_physics.make_grid(depth, ypos, MODELINFO, jnp.float64)
+    grid = _grid(depth, ypos, torch.float64)
+    kv = physics.vert_mixing_coeff(grid, 0.3 * YEAR)
+    ours = cn_vertical_increment(kv, torch.as_tensor(diag[0]), grid.dz_r,
+                                 torch.as_tensor(y0[0]), 3600.0)
+    ref = jax_cn_increment(jnp.asarray(kv.numpy()), jnp.asarray(diag[0]),
+                           jgrid.dz_r, jnp.asarray(y0[0]), 3600.0)
+    assert _rel(ours.numpy(), ref) < 1e-12
+
+
+def test_imex_year_matches_jax_f64(setup):
+    """(a) the same scheme in float64: roundoff only"""
+    depth, ypos, diag, y0 = setup
+    jgrid = jax_physics.make_grid(depth, ypos, MODELINFO, jnp.float64)
+
+    def jax_tend(t, y):
+        def one(v):
+            return jax_physics.advection_tend(jgrid, v) + jax_physics.horiz_mix_tend(
+                jgrid, v
+            )
+
+        return jax.vmap(one)(y) + 1.0 / YEAR
+
+    ref = jax_imex_year(
+        jax_tend, lambda t: jax_physics.vert_mixing_coeff(jgrid, t),
+        jnp.asarray(diag), jgrid.dz_r, jnp.asarray(y0), SPAN, N_STEPS,
+    )
+
+    grid = _grid(depth, ypos, torch.float64)
+
+    def tend(t, y):
+        return physics.advection_tend(grid, y) + physics.horiz_mix_tend(grid, y) + (
+            1.0 / YEAR
+        )
+
+    ours = imex_year(tend, lambda t: physics.vert_mixing_coeff(grid, t),
+                     torch.as_tensor(diag), grid.dz_r, torch.as_tensor(y0), SPAN,
+                     N_STEPS)
+    assert _rel(ours.numpy(), ref) < 1e-12
+
+
+@pytest.mark.parametrize("aging", [True, False])
+def test_plain_year_matches_pallas_kernel_f32(setup, aging):
+    """(b) the kernel's plain version against the JAX package's Pallas
+    kernel in interpret mode, float32; (c) and against the float64 plain
+    version (Kahan keeps f32 near f64)"""
+    depth, ypos, diag, y0 = setup
+    source = np.full((2, 1, 1), 1.0 / YEAR if aging else 0.0)
+    jgrid = jax_physics.make_grid(depth, ypos, MODELINFO, jnp.float32)
+    ref = build_iage_year_pallas_v2(
+        jgrid, diag.astype(np.float32), source.astype(np.float32), SPAN, N_STEPS
+    )(jnp.asarray(y0, jnp.float32), interpret=True)
+
+    plain32 = imex_cuda.build_iage_year_plain(
+        _grid(depth, ypos, torch.float32), diag, source, SPAN, N_STEPS
+    )(torch.as_tensor(y0, dtype=torch.float32))
+    plain64 = imex_cuda.build_iage_year_plain(
+        _grid(depth, ypos, torch.float64), diag, source, SPAN, N_STEPS
+    )(torch.as_tensor(y0))
+    assert plain32.dtype == torch.float32
+    # the JAX test's own bound for its kernel against the scan
+    assert _rel(plain32.numpy(), ref) < 5e-5
+    assert _rel(plain32.numpy(), plain64.numpy()) < 1e-4
+
+
+def test_wrapper_cpu_is_plain_and_cuda_never_falls_back(setup, monkeypatch):
+    """(d) on the CPU the wrapper is the plain f32 year; a CUDA request
+    without a card raises, and never returns a CPU result"""
+    depth, ypos, diag, y0 = setup
+    source = np.full((2, 1, 1), 1.0 / YEAR)
+    grid64 = _grid(depth, ypos, torch.float64)
+    y32 = torch.as_tensor(y0, dtype=torch.float32)
+    year = imex_cuda.build_iage_year(grid64, diag, source, SPAN, N_STEPS,
+                                     device="cpu")
+    plain = imex_cuda.build_iage_year_plain(
+        _grid(depth, ypos, torch.float32), diag, source, SPAN, N_STEPS
+    )
+    before = imex_cuda.iage_year_launches
+    assert torch.equal(year(y32), plain(y32))
+    assert imex_cuda.iage_year_launches == before
+    with pytest.raises(ValueError):
+        year(y32.double())
+    with pytest.raises(ValueError):
+        year(y32[:, :, :-1])
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        imex_cuda.build_iage_year(grid64, diag, source, SPAN, N_STEPS,
+                                  device="cuda")

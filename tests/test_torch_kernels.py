@@ -1,0 +1,79 @@
+"""the CUDA year kernel (csrc/iage_year.cu) against its plain PyTorch
+version; needs an NVIDIA Hopper card and nvcc, and skips without a card
+
+    python -m pytest tests/test_torch_kernels.py -q     # on the card
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from newton_krylov_ooc_tpu_torch.cli.incore_spinup import MODELINFO, build_axes
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d import physics
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
+    SURF_SLOW_FACTOR,
+    surf_restore_rate,
+)
+from newton_krylov_ooc_tpu_torch.ops import imex_cuda
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+# f32 rounding in another order (Thomas vs PCR, FMA), relative to max|y|:
+# the JAX package's own bound for its kernel against the scan
+TOL = 5e-5
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the year kernel has no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _setup(nz, ny, device):
+    depth, ypos = build_axes(nz, ny)
+    grid = physics.make_grid(depth, ypos, MODELINFO, device=device,
+                             dtype=torch.float32)
+    rate = surf_restore_rate(depth)
+    diag = np.zeros((2, nz, ny))
+    diag[0, 0, :] = -rate
+    diag[1, 0, :] = -SURF_SLOW_FACTOR * rate
+    return grid, diag
+
+
+@pytest.mark.parametrize("nz, ny, n_steps", [(8, 6, 24), (40, 50, 8760)])
+@pytest.mark.parametrize("aging", [True, False])
+def test_year_kernel_matches_plain(cuda_device, nz, ny, n_steps, aging):
+    grid, diag = _setup(nz, ny, cuda_device)
+    source = np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR if aging else 0.0)
+    span = (0.0, physics.SEC_PER_YEAR)
+    rng = np.random.default_rng(7)
+    y0 = torch.as_tensor(rng.uniform(0.0, 2.0, (2, nz, ny)), dtype=torch.float32,
+                         device=cuda_device)
+
+    before = imex_cuda.iage_year_launches
+    y_k = imex_cuda.build_iage_year(grid, diag, source, span, n_steps,
+                                    device=cuda_device)(y0)
+    torch.cuda.synchronize()
+    assert imex_cuda.iage_year_launches == before + 1
+    y_p = imex_cuda.build_iage_year_plain(grid, diag, source, span, n_steps)(y0)
+
+    assert torch.isfinite(y_k).all()
+    scale = float(y_p.abs().max())
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+
+
+def test_year_kernel_rejects_what_it_cannot_take(cuda_device):
+    grid, diag = _setup(8, 6, cuda_device)
+    year = imex_cuda.build_iage_year(grid, diag, np.zeros((2, 1, 1)),
+                                     (0.0, physics.SEC_PER_YEAR), 24,
+                                     device=cuda_device)
+    y0 = torch.ones((2, 8, 6), dtype=torch.float32, device=cuda_device)
+    before = imex_cuda.iage_year_launches
+    for bad in (y0.double(), y0.cpu(), y0[:1], y0.transpose(1, 2).contiguous()
+                .transpose(1, 2)):
+        with pytest.raises(ValueError):
+            year(bad)
+    assert imex_cuda.iage_year_launches == before

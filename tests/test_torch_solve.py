@@ -1,0 +1,164 @@
+"""the slice as a whole: the port's in-core Newton-Krylov spin-up against
+the JAX package's, float64, on the 10x6 grid; checkpoints across packages;
+the port imports no jax; TF32 stays off"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from newton_krylov_ooc_tpu.core.incore import (  # noqa: E402
+    NewtonKrylovInCore as JaxNewtonKrylovInCore,
+)
+from newton_krylov_ooc_tpu.models.py_driver_2d.incore import (  # noqa: E402
+    IageKernel as JaxIageKernel,
+)
+from newton_krylov_ooc_tpu_torch.cli.incore_spinup import (  # noqa: E402
+    MODELINFO,
+    build_axes,
+)
+from newton_krylov_ooc_tpu_torch.core.incore import NewtonKrylovInCore  # noqa: E402
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.convert import (  # noqa: E402
+    grid_from_numpy,
+    state_from_numpy,
+)
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (  # noqa: E402
+    IageKernel,
+)
+
+torch.set_num_threads(1)
+
+NZ, NY, N_STEPS = 10, 6, 146
+SOLVER = {"newton_rel_tol": 1e-8, "krylov_rel_tol": 1e-2, "newton_max_iter": 8}
+CPU = torch.device("cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class _CountingJaxSolver(JaxNewtonKrylovInCore):
+    """the JAX host-driven solver, recording Krylov iterations per step"""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.krylov_iterations = []
+
+    def _gmres(self, x, fcn):
+        increment, its = super()._gmres(x, fcn)
+        self.krylov_iterations.append(its)
+        return increment, its
+
+
+@pytest.fixture(scope="module")
+def models():
+    depth, ypos = build_axes(NZ, NY)
+    jk = JaxIageKernel(depth, ypos, MODELINFO, dtype=jnp.float64,
+                       n_steps=N_STEPS, use_pallas=False)
+    grid = grid_from_numpy(
+        {k: np.asarray(v) for k, v in jk.grid._asdict().items()},
+        device=CPU, dtype=torch.float64,
+    )
+    tk = IageKernel(depth, ypos, MODELINFO, device=CPU, dtype=torch.float64,
+                    n_steps=N_STEPS, grid=grid)
+    return jk, tk
+
+
+@pytest.fixture(scope="module")
+def jax_solve(models):
+    jk, _ = models
+    solver = _CountingJaxSolver(jk, **SOLVER)
+    x, _, info = solver.solve(jk.init_iterate())
+    return np.asarray(x), info, solver
+
+
+def _rel(a, b):
+    return np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max()
+
+
+def test_solve_matches_jax(models, jax_solve):
+    _, tk = models
+    x_ref, info_ref, solver_ref = jax_solve
+    solver = NewtonKrylovInCore(tk, **SOLVER)
+    x, fcn, info = solver.solve(tk.init_iterate())
+
+    assert info["iterations"] == info_ref["iterations"] >= 2
+    assert list(info["krylov_iterations"]) == solver_ref.krylov_iterations
+    hist = np.array([st["fcn_norm"] for st in info["stats"]])
+    hist_ref = np.array([st["fcn_norm"] for st in info_ref["stats"]])
+    assert hist.shape == hist_ref.shape
+    assert (np.abs(hist - hist_ref) <= 1e-6 * hist_ref).all()
+    assert _rel(x.numpy(), x_ref) < 1e-8
+    assert (info["fcn_norm"] / info["x_norm"] < SOLVER["newton_rel_tol"]).all()
+
+
+def test_jax_checkpoint_resumes_in_port(models, jax_solve, tmp_path):
+    """a JAX in-core npz checkpoint, taken after one Newton step, resumes in
+    the port at that iteration and finishes where the JAX solve did"""
+    jk, tk = models
+    x_ref, info_ref, _ = jax_solve
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(RuntimeError, match="maximum Newton iterations"):
+        JaxNewtonKrylovInCore(jk, **{**SOLVER, "newton_max_iter": 1}).solve(
+            jk.init_iterate(), checkpoint_dir=ckpt
+        )
+    with np.load(os.path.join(ckpt, "incore_state.npz")) as data:
+        assert int(data["iteration"]) == 1
+
+    solver = NewtonKrylovInCore(tk, **SOLVER)
+    x, _, info = solver.solve(tk.init_iterate(), checkpoint_dir=ckpt)
+    assert solver.stats[0]["iteration"] == 1
+    assert info["iterations"] == info_ref["iterations"]
+    assert _rel(x.numpy(), x_ref) < 1e-8
+    # the port's own snapshot reads back as the converged iterate
+    with np.load(os.path.join(ckpt, "incore_state.npz")) as data:
+        assert int(data["iteration"]) == info["iterations"]
+        back = state_from_numpy(data["x"], device=CPU, dtype=torch.float64)
+    assert torch.equal(back, x)
+
+
+def test_unported_modes_raise(models):
+    _, tk = models
+    for flag in ("jit_gmres", "jit_newton"):
+        with pytest.raises(NotImplementedError, match="A1.7"):
+            NewtonKrylovInCore(tk, **{flag: True})
+    with pytest.raises(NotImplementedError, match="A5.5"):
+        NewtonKrylovInCore(tk).solve(tk.init_iterate(), checkpoint_dir="unused",
+                                     checkpoint_backend="orbax")
+
+
+def test_port_imports_no_jax():
+    """every module of the port, and chip_smoke.py, load without jax"""
+    code = (
+        "import importlib, importlib.util, pkgutil, sys\n"
+        "import newton_krylov_ooc_tpu_torch as pkg\n"
+        "import newton_krylov_ooc_tpu_torch.cli.incore_spinup\n"
+        "for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "assert not loaded, loaded\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_tf32_off_after_compute_import():
+    from newton_krylov_ooc_tpu_torch.ops import compute
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    compute.check_no_tf32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            compute.check_no_tf32()
+    finally:
+        compute.disable_tf32()
