@@ -8,7 +8,8 @@
 // right-hand side in flux form, the seasonal mixing coefficient kv(t) in
 // closed form, advection + lateral diffusion as one fused face flux
 // G = ca*y_l + cb*y_r, a per-channel source, and Kahan-compensated float32
-// accumulation of every increment.
+// accumulation of every increment.  The device code it shares with the
+// phosphorus year (csrc/phosphorus_year.cu) lives in csrc/imex_common.cuh.
 //
 // Design.  Tracer channels never couple (the TPU kernel's lane-packed seams
 // carry exact zeros), so one thread block owns one channel: gridDim = T.
@@ -42,164 +43,26 @@
 // floats (72,312 bytes at 40 x 50); iage_year_smem_bytes is the one place
 // that counts it, and the wrapper checks it against the card's opt-in limit.
 
-#include <cuda_runtime.h>
+#include "imex_common.cuh"
 
 namespace {
 
+using namespace imex;
+
 constexpr int kThreads = 512;
-constexpr int kHeader = 16;  // scalars ahead of the constant fields
-constexpr int kFrac = 4;     // breakpoints of the seasonal mixed-layer ramp
-
-// header: bld_min, log_shallow, log_deep, tfrac[kFrac], ffrac[kFrac]
-struct Header {
-  float bld_min, log_shallow, log_deep;
-  float tfrac[kFrac], ffrac[kFrac];
-};
-
-__host__ __device__ inline long grid_floats(int nz, int ny) {
-  // ca, cb (nz, ny-1); wv (nz-1, ny); dy_r (ny); dz_r (nz); dz_mid,
-  // dz_mid_r (nz-1); depth_mid (nz); bld_max (ny)
-  return 2L * nz * (ny - 1) + (long)(nz - 1) * ny + 2L * ny + 2L * nz +
-         2L * (nz - 1);
-}
 
 __host__ __device__ inline long smem_floats(int nz, int ny) {
   // y, comp, f1, ys, diag (nz, ny); kv (nz-1, ny); the constant fields
   return 5L * nz * ny + (long)(nz - 1) * ny + grid_floats(nz, ny);
 }
 
-struct Fields {
-  const float *ca, *cb, *wv, *dy_r, *dz_r, *dz_mid, *dz_mid_r, *depth_mid,
-      *bld_max;
-};
-
-__device__ inline Fields grid_fields(const float* base, int nz, int ny) {
-  Fields f;
-  f.ca = base;
-  f.cb = f.ca + nz * (ny - 1);
-  f.wv = f.cb + nz * (ny - 1);
-  f.dy_r = f.wv + (nz - 1) * ny;
-  f.dz_r = f.dy_r + ny;
-  f.dz_mid = f.dz_r + nz;
-  f.dz_mid_r = f.dz_mid + (nz - 1);
-  f.depth_mid = f.dz_mid_r + (nz - 1);
-  f.bld_max = f.depth_mid + nz;
-  return f;
-}
-
-// closed-form piecewise-linear table lookup, flat beyond both ends
-__device__ inline float piecewise_frac(float t, const Header& h) {
-  float val = h.ffrac[0];
-  for (int k = 0; k < kFrac - 1; ++k) {
-    float r = (t - h.tfrac[k]) / (h.tfrac[k + 1] - h.tfrac[k]);
-    r = fminf(fmaxf(r, 0.0f), 1.0f);
-    val = val + (h.ffrac[k + 1] - h.ffrac[k]) * r;
-  }
-  return val;
-}
-
-// integral of (clip(x, x0, x1) - x0): quadratic ramp then linear tail
-__device__ inline float antider(float x, float x0, float x1) {
-  float c = fminf(fmaxf(x, x0), x1) - x0;
-  return 0.5f * c * c + (x1 - x0) * fmaxf(x - x1, 0.0f);
-}
-
-// vertical mixing coefficient / delta_mid on interior edge (k, j) at frac
-__device__ inline float kv_edge(int k, int j, int ny, float frac,
-                                const Header& h, const Fields& g) {
-  float bld = h.bld_min + (g.bld_max[j] - h.bld_min) * frac;
-  float x0 = bld - 20.0f;
-  float x1 = bld + 20.0f;
-  float slope = (h.log_deep - h.log_shallow) / (x1 - x0);
-  float e_lo = g.depth_mid[k];
-  float e_hi = g.depth_mid[k + 1];
-  float e_delta = e_hi - e_lo;
-  float num = h.log_shallow * e_delta +
-              slope * (antider(e_hi, x0, x1) - antider(e_lo, x0, x1));
-  float coeff = expf(num / e_delta);
-  float peclet = 0.5f * g.dz_mid[k] * fabsf(g.wv[k * ny + j]) / coeff;
-  coeff = coeff * fmaxf(peclet, 1.0f);
-  return coeff * g.dz_mid_r[k];
-}
-
-__device__ inline void kv_phase(float* kv, float t, int nz, int ny,
-                                const Header& h, const Fields& g) {
-  float frac = piecewise_frac(t, h);
-  for (int e = threadIdx.x; e < (nz - 1) * ny; e += blockDim.x) {
-    int k = e / ny;
-    kv[e] = kv_edge(k, e - k * ny, ny, frac, h, g);
-  }
-}
-
-// explicit tendency at cell (k, j): fused lateral flux, vertical advection,
-// source
-__device__ inline float tend(const float* y, int idx, int k, int j, int nz,
-                             int ny, float src, const Fields& g) {
-  float yc = y[idx];
-  int f = k * (ny - 1) + j;  // face index of the (k, j) | (k, j+1) face
-  float gl = 0.0f, gr = 0.0f;
-  if (j > 0) gl = g.ca[f - 1] * y[idx - 1] + g.cb[f - 1] * yc;
-  if (j < ny - 1) gr = g.ca[f] * yc + g.cb[f] * y[idx + 1];
-  float res = g.dy_r[j] * (gl - gr);
-  float wa = 0.0f, wb = 0.0f;
-  if (k > 0) wa = 0.5f * (yc + y[idx - ny]) * g.wv[idx - ny];
-  if (k < nz - 1) wb = 0.5f * (y[idx + ny] + yc) * g.wv[idx];
-  res = res + g.dz_r[k] * (wb - wa);
-  return res + src;
-}
-
-__device__ inline void kahan_add(float* y, float* comp, int idx, float delta) {
-  float adj = delta + comp[idx];
-  float y_old = y[idx];
-  float y_new = y_old + adj;
-  comp[idx] = adj - (y_new - y_old);
-  y[idx] = y_new;
-}
-
-// Crank-Nicolson increment over h for every column, Kahan-added into y:
-// solve (I - h/2 M) dv = h M y with M = Lz + D, Thomas along depth
+// the CN increment of every column, Kahan-added into y; f1 and ys serve as
+// the Thomas sweep factors (free during phase C)
 __device__ inline void cn_phase(float* y, float* comp, float* cp, float* gp,
                                 const float* kv, const float* diag, float h,
                                 int nz, int ny, const Fields& g) {
-  float half = 0.5f * h;
-  for (int j = threadIdx.x; j < ny; j += blockDim.x) {
-    float cp_prev = 0.0f, gp_prev = 0.0f;
-    float kv_lo = 0.0f, flux_up = 0.0f;
-    float yk = y[j];
-    for (int k = 0; k < nz; ++k) {
-      int idx = k * ny + j;
-      float dzr = g.dz_r[k];
-      float kv_up = 0.0f, y_dn = 0.0f, flux_dn = 0.0f;
-      if (k < nz - 1) {
-        kv_up = kv[idx];
-        y_dn = y[idx + ny];
-        flux_dn = kv_up * (y_dn - yk);
-      }
-      float du = kv_up * dzr;  // coupling to the layer below
-      float dl = kv_lo * dzr;  // coupling to the layer above
-      float d = diag[idx];
-      float dmain = -(du + dl) + d;
-      float rhs = h * (dzr * (flux_dn - flux_up) + d * yk);
-      float a = -half * dl;
-      float b = 1.0f - half * dmain;
-      float c = -half * du;
-      float denom = b - a * cp_prev;
-      cp_prev = c / denom;
-      gp_prev = (rhs - a * gp_prev) / denom;
-      cp[idx] = cp_prev;
-      gp[idx] = gp_prev;
-      kv_lo = kv_up;
-      flux_up = flux_dn;
-      yk = y_dn;
-    }
-    float x_next = 0.0f;
-    for (int k = nz - 1; k >= 0; --k) {
-      int idx = k * ny + j;
-      float x = gp[idx] - cp[idx] * x_next;
-      kahan_add(y, comp, idx, x);
-      x_next = x;
-    }
-  }
+  for (int j = threadIdx.x; j < ny; j += blockDim.x)
+    cn_column<true>(y, comp, cp, gp, kv, diag, h, j, nz, ny, g);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -210,14 +73,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n = nz * ny;
   const int ch = blockIdx.x;
 
-  Header h;
-  h.bld_min = fields[0];
-  h.log_shallow = fields[1];
-  h.log_deep = fields[2];
-  for (int k = 0; k < kFrac; ++k) {
-    h.tfrac[k] = fields[3 + k];
-    h.ffrac[k] = fields[3 + kFrac + k];
-  }
+  const Header h = load_header(fields);
   const float* grid_g = fields + kHeader;
   const long n_grid = grid_floats(nz, ny);
   const float src = grid_g[n_grid + ch];
@@ -250,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
     // A: Heun stage 1 and kv for the CN solve at t + dt
     for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
       int k = idx / ny;
-      float f = tend(y, idx, k, idx - k * ny, nz, ny, src, g);
+      float f = transport_tend(y, idx, k, idx - k * ny, nz, ny, src, g);
       f1[idx] = f;
       ys[idx] = y[idx] + dt * f;
     }
@@ -259,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
     // B: Heun stage 2 and the compensated explicit update
     for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
       int k = idx / ny;
-      float f2 = tend(ys, idx, k, idx - k * ny, nz, ny, src, g);
+      float f2 = transport_tend(ys, idx, k, idx - k * ny, nz, ny, src, g);
       kahan_add(y, comp, idx, half_dt * (f1[idx] + f2));
     }
     __syncthreads();
@@ -287,8 +143,7 @@ long iage_year_smem_bytes(int nz, int ny) {
 
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of `device`, into *out
 int iage_year_smem_optin(int device, int* out) {
-  return (int)cudaDeviceGetAttribute(
-      out, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return imex::smem_optin(device, out);
 }
 
 const char* iage_year_error_string(int err) {

@@ -236,6 +236,20 @@ def horiz_mix_tend(grid: Grid2D, v):
     return grid.dy_r * (flux[..., :, 1:] - flux[..., :, :-1])
 
 
+def vert_mix_tend(grid: Grid2D, kv, v):
+    """vertical diffusion tendency given kv = vert_mixing_coeff(grid, t)"""
+    flux = _pad_depth(kv * (v[..., 1:, :] - v[..., :-1, :]))
+    return grid.dz_r[:, None] * (flux[..., 1:, :] - flux[..., :-1, :])
+
+
+def transport_tend(grid: Grid2D, kv, v):
+    """sum of all process tendencies for the tracer fields v"""
+    return (
+        advection_tend(grid, v) + horiz_mix_tend(grid, v)
+        + vert_mix_tend(grid, kv, v)
+    )
+
+
 # -- analytic Jacobian assembly ---------------------------------------------------
 
 
@@ -317,3 +331,12 @@ def transport_jac(grid: Grid2D, time):
     return lateral_jac_const(grid) + vertical_jac(
         grid, vert_mixing_coeff(grid, time)
     )
+
+
+def block_diag_tracers(blocks):
+    """dense block-diagonal assembly of per-tracer (n, n) Jacobians"""
+    n = blocks[0].shape[0]
+    jac = blocks[0].new_zeros((len(blocks) * n, len(blocks) * n))
+    for ind, blk in enumerate(blocks):
+        jac[ind * n:(ind + 1) * n, ind * n:(ind + 1) * n] = blk
+    return jac

@@ -1,4 +1,4 @@
-"""the py_driver_2d iage year as one hand-written CUDA kernel, and its plain
+"""the py_driver_2d years as hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
 `build_iage_year` is the port of
@@ -10,12 +10,23 @@ that file for the design).  Linear models only: with the source zeroed the
 year is its own exact tangent map, so IageKernel's JVP runs through it too.
 
 `build_iage_year_plain` returns the same year over ops/imex.py::imex_year.
-The wrapper takes the plain version only for tensors on the CPU; for a CUDA
-float32 tensor it launches the kernel or raises.
 
-The kernel is compiled from csrc/ with nvcc at first use into
-<repo>/build/torch_kernels/, keyed on a hash of the sources and flags, into
-a shared library with a plain C interface that ctypes loads.
+`build_phosphorus_year` is the port of
+newton_krylov_ooc_tpu/ops/imex_pallas.py::build_phosphorus_year_pallas:
+(grid, params, light_lim, t_span, n_steps) -> year(y0) with y0 the
+(3, nz, ny) po4/dop/pop state, the whole coupled year in one launch of
+csrc/phosphorus_year.cu.  Forward only: the model is nonlinear, so its
+Jacobian-vector products go through forward-mode AD of the plain year
+(models/py_driver_2d/incore.py::PhosphorusKernel.jvp), as the JAX package
+keeps them off its kernel.  `build_phosphorus_year_plain` is imex_year over
+models/py_driver_2d/phosphorus.py::explicit_tend with a zero implicit
+diagonal.
+
+Each wrapper takes the plain version only on the CPU; for a CUDA float32
+tensor it launches its kernel or raises.  Each kernel source is compiled
+with nvcc at first use into <repo>/build/torch_kernels/, keyed on a hash of
+its sources and flags, into a shared library with a plain C interface that
+ctypes loads.
 """
 
 from __future__ import annotations
@@ -31,23 +42,33 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.py_driver_2d import physics
+from ..models.py_driver_2d import phosphorus, physics
 from .compute import resolve_device
 from .imex import imex_year
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "iage_year.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# kernel name -> its source; every source also includes COMMON
+SOURCES = {"iage_year": "iage_year.cu", "phosphorus_year": "phosphorus_year.cu"}
+COMMON = ("imex_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_HEADER = 16  # scalars ahead of the constant fields (csrc/iage_year.cu)
+_HEADER = 16  # scalars ahead of the constant fields (csrc/imex_common.cuh)
+_PARAMS = 8   # phosphorus scalars after them (csrc/phosphorus_year.cu)
+_PHOS_TRACERS = 3  # po4, dop, pop
 
-# launches of the CUDA year kernel in this process (one per year(y0) call
-# on a CUDA tensor); callers reset it to 0 to count a run's launches
+# launches of each CUDA year kernel in this process (one per year(y0) call
+# on a CUDA tensor); callers reset them to 0 to count a run's launches
 iage_year_launches = 0
+phosphorus_year_launches = 0
 
-_lib = None
+_libs = {}
+
+# how many shape ints <name>_fields_len and <name>_launch take: t_dim, nz,
+# ny for iage; nz, ny for phosphorus
+_SHAPE_ARGS = {"iage_year": 3, "phosphorus_year": 2}
 
 
 def _nvcc():
@@ -61,79 +82,114 @@ def _nvcc():
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def build_library():
-    """compile csrc/iage_year.cu into BUILD_DIR unless this source and flag
-    set was built before; returns (path of the .so, seconds spent building).
-    The ptxas report (registers, shared memory, spills) is kept beside it
-    in a .log file."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def _library_path(name):
+    """where kernel `name`'s library goes: keyed on its source, the shared
+    headers and the flags"""
+    digest = hashlib.sha256()
+    for fname in (SOURCES[name], *COMMON):
+        digest.update((CSRC / fname).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"iage_year_{digest.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return lib_path, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True, check=False,
-    )
-    seconds = time.perf_counter() - start
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries(names=tuple(SOURCES)):
+    """compile each named kernel source that was not built before, one nvcc
+    process each, all started together; returns {name: (path of the .so,
+    seconds spent building it)}.  Each ptxas report (registers, shared
+    memory, spills) is kept beside its library in a .log file."""
+    running = {}
+    todo = [name for name in names if not _library_path(name).exists()]
+    built = {name: (_library_path(name), 0.0) for name in names
+             if name not in todo}
+    nvcc = _nvcc() if todo else None
+    for name in todo:
+        lib_path = _library_path(name)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-    os.replace(tmp, lib_path)
-    return lib_path, seconds
+        running[name] = (proc, lib_path, tmp, time.perf_counter())
+    failures = []
+    for name, (proc, lib_path, tmp, start) in running.items():
+        out, err = proc.communicate()
+        seconds = time.perf_counter() - start
+        lib_path.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}) on "
+                            f"{SOURCES[name]}:\n{err}")
+            continue
+        os.replace(tmp, lib_path)
+        built[name] = (lib_path, seconds)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return built
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib_path, _ = build_library()
+def _library(name):
+    if name not in _libs:
+        lib_path, _ = build_libraries((name,))[name]
         lib = ctypes.CDLL(str(lib_path))
-        lib.iage_year_fields_len.argtypes = [ctypes.c_int] * 3
-        lib.iage_year_fields_len.restype = ctypes.c_long
-        lib.iage_year_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.iage_year_smem_bytes.restype = ctypes.c_long
-        lib.iage_year_smem_optin.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-        ]
-        lib.iage_year_smem_optin.restype = ctypes.c_int
-        lib.iage_year_error_string.argtypes = [ctypes.c_int]
-        lib.iage_year_error_string.restype = ctypes.c_char_p
-        lib.iage_year_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.iage_year_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+        shape = [c_int] * _SHAPE_ARGS[name]
+        signatures = {
+            "fields_len": (shape, ctypes.c_long),
+            "smem_bytes": ([c_int] * 2, ctypes.c_long),
+            "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
+            "error_string": ([c_int], ctypes.c_char_p),
+            # y0, out, fields, shape, n_steps, t0, dt, stream
+            "launch": ([c_ptr] * 3 + shape + [c_int]
+                       + [ctypes.c_float] * 2 + [c_ptr], c_int),
+        }
+        for suffix, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes, fn.restype = argtypes, restype
+        _libs[name] = lib
+    return _libs[name]
 
 
-def _cuda_error(lib, err, what):
-    msg = lib.iage_year_error_string(err).decode()
+def _cuda_error(lib, name, err, what):
+    msg = getattr(lib, f"{name}_error_string")(err).decode()
     return RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _check_smem(lib, name, nz, ny, device, what):
+    """raise ValueError when kernel `name`'s shared-memory plan at nz x ny
+    (counted by its <name>_smem_bytes) exceeds the card's opt-in limit"""
+    smem = getattr(lib, f"{name}_smem_bytes")(nz, ny)
+    limit = ctypes.c_int(0)
+    err = getattr(lib, f"{name}_smem_optin")(device.index, ctypes.byref(limit))
+    if err:
+        raise _cuda_error(lib, name, err,
+                          "querying the shared-memory opt-in limit")
+    if smem > limit.value:
+        raise ValueError(
+            f"the {name} kernel keeps {what} in shared memory: {smem} bytes "
+            f"at {nz}x{ny}, over the {limit.value} bytes one block may use "
+            f"on {torch.cuda.get_device_name(device)}; grids this large need "
+            "a multi-block design"
+        )
 
 
 def _grid_to(grid, device, dtype):
     return physics.Grid2D(*(f.to(device=device, dtype=dtype) for f in grid))
 
 
+def _cpu64(arr):
+    """a numpy array or tensor as a float64 tensor on the CPU"""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().to(torch.float64)
+    return torch.as_tensor(np.asarray(arr), dtype=torch.float64)
+
+
 def _channels(vert_diag, source, nz, ny):
     """(T, nz, ny) implicit diagonal and (T,) source as float64 tensors on
     the CPU"""
-    def cpu64(arr):
-        if isinstance(arr, torch.Tensor):
-            return arr.detach().cpu().to(torch.float64)
-        return torch.as_tensor(np.asarray(arr), dtype=torch.float64)
-
-    diag = cpu64(vert_diag)
+    diag = _cpu64(vert_diag)
     t_dim = diag.shape[0]
     diag = diag.reshape(t_dim, nz, ny)
-    src = cpu64(source).reshape(-1)
+    src = _cpu64(source).reshape(-1)
     if src.shape[0] != t_dim:
         raise ValueError(f"source has {src.shape[0]} channels, vert_diag {t_dim}")
     return diag, src
@@ -184,11 +240,11 @@ def build_iage_year_plain(grid, vert_diag, source, t_span, n_steps):
     return year
 
 
-def _pack_fields(grid, diag, src):
-    """the kernel's packed float32 constants, in csrc/iage_year.cu's order:
-    header (bld_min, log_shallow, log_deep, tfrac[4], ffrac[4], padding),
-    ca, cb (nz, ny-1); wv (nz-1, ny); dy_r; dz_r; dz_mid; dz_mid_r;
-    depth_mid; bld_max; src (T); diag (T, nz, ny)"""
+def _header_and_grid(grid):
+    """the packed float32 constants both kernels start with, in
+    csrc/imex_common.cuh's order: header (bld_min, log_shallow, log_deep,
+    tfrac[4], ffrac[4], padding), ca, cb (nz, ny-1); wv (nz-1, ny); dy_r;
+    dz_r; dz_mid; dz_mid_r; depth_mid; bld_max -- header first, grid after"""
     nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
     f32 = _grid_to(grid, torch.device("cpu"), torch.float32)
     tfrac = np.asarray(physics._BLD_TFRAC, np.float64)
@@ -207,11 +263,22 @@ def _pack_fields(grid, diag, src):
         grid.ypos_mid.detach().cpu().to(torch.float64),
         physics._BLD_YPOS, physics._BLD_MAX,
     )
-    parts = [
-        torch.as_tensor(header), ca, cb, f32.wvel[1:-1, :], f32.dy_r, f32.dz_r,
-        f32.dz_mid, f32.dz_mid_r, f32.depth_mid, bld_max, src, diag,
+    grid_parts = [
+        ca, cb, f32.wvel[1:-1, :], f32.dy_r, f32.dz_r, f32.dz_mid,
+        f32.dz_mid_r, f32.depth_mid, bld_max,
     ]
+    return torch.as_tensor(header), grid_parts
+
+
+def _flat32(parts):
     return torch.cat([p.to(torch.float32).reshape(-1) for p in parts])
+
+
+def _pack_fields(grid, diag, src):
+    """the iage kernel's packed float32 constants: header, grid fields,
+    src (T), diag (T, nz, ny)"""
+    header, grid_parts = _header_and_grid(grid)
+    return _flat32([header, *grid_parts, src, diag])
 
 
 def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
@@ -236,21 +303,10 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
     diag, src = _channels(vert_diag, source, nz, ny)
     t_dim = diag.shape[0]
     fields = _pack_fields(grid, diag, src).to(device)
-    lib = _library()
+    lib = _library("iage_year")
     if lib.iage_year_fields_len(t_dim, nz, ny) != fields.numel():
         raise RuntimeError("packed constants disagree with csrc/iage_year.cu")
-    smem = lib.iage_year_smem_bytes(nz, ny)
-    limit = ctypes.c_int(0)
-    err = lib.iage_year_smem_optin(device.index, ctypes.byref(limit))
-    if err:
-        raise _cuda_error(lib, err, "querying the shared-memory opt-in limit")
-    if smem > limit.value:
-        raise ValueError(
-            f"the year kernel keeps one {nz}x{ny} channel in shared memory: "
-            f"{smem} bytes, over the {limit.value} bytes one block may use on "
-            f"{torch.cuda.get_device_name(device)}; grids this large need a "
-            "multi-block design"
-        )
+    _check_smem(lib, "iage_year", nz, ny, device, "one channel's year")
     t0 = float(t_span[0])
     dt = float((t_span[1] - t_span[0]) / n_steps)
     shape = (t_dim, nz, ny)
@@ -266,8 +322,108 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
                 t_dim, nz, ny, int(n_steps), t0, dt, stream,
             )
         if err:
-            raise _cuda_error(lib, err, "iage_year_kernel launch")
+            raise _cuda_error(lib, "iage_year", err, "iage_year_kernel launch")
         iage_year_launches += 1
+        return out
+
+    return year
+
+
+def _light_field(light_lim, nz, ny):
+    return _cpu64(light_lim).reshape(nz, ny)
+
+
+def build_phosphorus_year_plain(grid, params, light_lim, t_span, n_steps):
+    """year(y0: (3, nz, ny)) -> y(t_end) over ops/imex.py::imex_year with
+    the phosphorus explicit tendency and no implicit diagonal, in the grid's
+    dtype and on the grid's device (the JAX in-core kernel's scan year,
+    models/py_driver_2d/incore.py:349-385)
+
+    params: the phosphorus parameter dict; light_lim: (nz, ny) light
+    limitation (numpy array or tensor)
+    """
+    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+    dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
+    light = _light_field(light_lim, nz, ny).to(device=device, dtype=dtype)
+    params = {key: float(val) for key, val in params.items()}
+    diag = torch.zeros((), dtype=dtype, device=device)
+    shape = (_PHOS_TRACERS, nz, ny)
+
+    def explicit_tend(t, y):
+        return phosphorus.explicit_tend(grid, params, light, y)
+
+    def vert_coeff(t):
+        return physics.vert_mixing_coeff(grid, t)
+
+    def year(y0):
+        _check_state(y0, shape, dtype, device)
+        return imex_year(explicit_tend, vert_coeff, diag, grid.dz_r, y0,
+                         t_span, n_steps)
+
+    return year
+
+
+def _pack_phosphorus_fields(grid, params, light):
+    """the phosphorus kernel's packed float32 constants, in
+    csrc/phosphorus_year.cu's order: header; params (po4_halfsat,
+    max_uptake_rate, sigma, 1 - sigma, dop_remin_rate, pop_remin_rate,
+    pop_sink_vel, padding); grid fields; light (nz, ny)"""
+    header, grid_parts = _header_and_grid(grid)
+    scalars = np.zeros(_PARAMS)
+    scalars[:7] = (
+        params["po4_halfsat"], params["max_uptake_rate"], params["sigma"],
+        1.0 - params["sigma"], params["dop_remin_rate"],
+        params["pop_remin_rate"], params["pop_sink_vel"],
+    )
+    return _flat32([header, torch.as_tensor(scalars), *grid_parts, light])
+
+
+def build_phosphorus_year(grid, params, light_lim, t_span, n_steps, *,
+                          device):
+    """year(y0: (3, nz, ny) float32) -> y(t_end), the whole coupled year in
+    one launch of the CUDA kernel on a CUDA `device`; on the CPU, the plain
+    version in float32.
+
+    grid: physics.Grid2D (any dtype; the kernel's constants are float32);
+    params: the phosphorus parameter dict; light_lim: (nz, ny) light
+    limitation.  Raises ValueError when the 3-tracer year's shared-memory
+    plan exceeds what one block may use on the card.
+    """
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return build_phosphorus_year_plain(
+            _grid_to(grid, device, torch.float32), params, light_lim, t_span,
+            n_steps,
+        )
+
+    nz, ny = int(grid.depth_mid.shape[0]), int(grid.ypos_mid.shape[0])
+    light = _light_field(light_lim, nz, ny)
+    fields = _pack_phosphorus_fields(grid, params, light).to(device)
+    lib = _library("phosphorus_year")
+    if lib.phosphorus_year_fields_len(nz, ny) != fields.numel():
+        raise RuntimeError(
+            "packed constants disagree with csrc/phosphorus_year.cu"
+        )
+    _check_smem(lib, "phosphorus_year", nz, ny, device,
+                "the 3-tracer year")
+    t0 = float(t_span[0])
+    dt = float((t_span[1] - t_span[0]) / n_steps)
+    shape = (_PHOS_TRACERS, nz, ny)
+
+    def year(y0):
+        global phosphorus_year_launches
+        _check_state(y0, shape, torch.float32, device)
+        out = torch.empty_like(y0)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.phosphorus_year_launch(
+                y0.data_ptr(), out.data_ptr(), fields.data_ptr(),
+                nz, ny, int(n_steps), t0, dt, stream,
+            )
+        if err:
+            raise _cuda_error(lib, "phosphorus_year", err,
+                              "phosphorus_year_kernel launch")
+        phosphorus_year_launches += 1
         return out
 
     return year

@@ -1,6 +1,9 @@
 """the port's IMEX year (plain PyTorch) against the JAX package's scan year
 and its Pallas kernel (interpret mode), on the 8x6 grid with 24 steps"""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -153,3 +156,67 @@ def test_wrapper_cpu_is_plain_and_cuda_never_falls_back(setup, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         imex_cuda.build_iage_year(grid64, diag, source, SPAN, N_STEPS,
                                   device="cuda")
+
+
+FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes the -o file and a ptxas line; fails on the
+# source named in FAIL_ON
+out=""
+src=""
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -o) out="$2"; shift 2 ;;
+    *.cu) src="$1"; shift ;;
+    *) shift ;;
+  esac
+done
+echo "ptxas info    : Used 7 registers" >&2
+if [ -n "$FAIL_ON" ]; then
+  case "$src" in *"$FAIL_ON"*) exit 3 ;; esac
+fi
+echo built > "$out"
+"""
+
+
+def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
+    """the kernel build: one nvcc per source, each library keyed on its
+    source, the shared header and the flags, the ptxas report beside it,
+    nothing rebuilt while the sources hold, and a failure that names its
+    source once every nvcc has ended"""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    (bindir / "nvcc").write_text(FAKE_NVCC)
+    (bindir / "nvcc").chmod(0o755)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(imex_cuda.CSRC, csrc)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.delenv("FAIL_ON", raising=False)
+    monkeypatch.setattr(imex_cuda, "CSRC", csrc)
+    monkeypatch.setattr(imex_cuda, "BUILD_DIR", tmp_path / "build")
+
+    built = imex_cuda.build_libraries()
+    assert sorted(built) == ["iage_year", "phosphorus_year"]
+    for name, (path, seconds) in built.items():
+        assert path.parent == tmp_path / "build" and path.name.startswith(name)
+        assert path.exists() and seconds > 0.0
+        assert "registers" in path.with_suffix(".log").read_text()
+    again = imex_cuda.build_libraries()
+    assert again == {name: (path, 0.0) for name, (path, _) in built.items()}
+
+    # a kernel's own source keys only its library
+    src = csrc / "phosphorus_year.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = imex_cuda.build_libraries()
+    assert again["iage_year"] == (built["iage_year"][0], 0.0)
+    assert again["phosphorus_year"][0] != built["phosphorus_year"][0]
+
+    # the shared header keys both; a failing source is named, the other built
+    header = csrc / "imex_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    monkeypatch.setenv("FAIL_ON", "phosphorus_year")
+    with pytest.raises(RuntimeError, match="phosphorus_year.cu") as failed:
+        imex_cuda.build_libraries()
+    assert "iage_year.cu" not in str(failed.value)
+    assert imex_cuda._library_path("iage_year") != built["iage_year"][0]
+    assert imex_cuda._library_path("iage_year").exists()
+    assert not imex_cuda._library_path("phosphorus_year").exists()

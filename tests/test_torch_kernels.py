@@ -1,5 +1,6 @@
-"""the CUDA year kernel (csrc/iage_year.cu) against its plain PyTorch
-version; needs an NVIDIA Hopper card and nvcc, and skips without a card
+"""the CUDA year kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu)
+against their plain PyTorch versions; need an NVIDIA Hopper card and nvcc,
+and skip without a card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
 """
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from newton_krylov_ooc_tpu_torch.cli.incore_spinup import MODELINFO, build_axes
-from newton_krylov_ooc_tpu_torch.models.py_driver_2d import physics
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d import phosphorus, physics
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     SURF_SLOW_FACTOR,
     surf_restore_rate,
@@ -28,7 +29,7 @@ TOL = 5e-5
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the year kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the year kernels have no CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -77,3 +78,44 @@ def test_year_kernel_rejects_what_it_cannot_take(cuda_device):
         with pytest.raises(ValueError):
             year(bad)
     assert imex_cuda.iage_year_launches == before
+
+
+def _phosphorus_year(nz, ny, n_steps, device):
+    depth, ypos = build_axes(nz, ny)
+    grid = physics.make_grid(depth, ypos, MODELINFO, device=device,
+                             dtype=torch.float32)
+    light = phosphorus.light_lim_2d(depth, ypos, device=device,
+                                    dtype=torch.float32)
+    args = (grid, phosphorus.DEFAULT_PARAMS, light,
+            (0.0, physics.SEC_PER_YEAR), n_steps)
+    return (imex_cuda.build_phosphorus_year(*args, device=device),
+            imex_cuda.build_phosphorus_year_plain(*args))
+
+
+@pytest.mark.parametrize("nz, ny, n_steps", [(8, 6, 24), (40, 50, 8760)])
+def test_phosphorus_year_kernel_matches_plain(cuda_device, nz, ny, n_steps):
+    year_k, year_p = _phosphorus_year(nz, ny, n_steps, cuda_device)
+    rng = np.random.default_rng(9)
+    y0 = torch.as_tensor(rng.uniform(0.0, 2.0, (3, nz, ny)), dtype=torch.float32,
+                         device=cuda_device)
+
+    before = imex_cuda.phosphorus_year_launches
+    y_k = year_k(y0)
+    torch.cuda.synchronize()
+    assert imex_cuda.phosphorus_year_launches == before + 1
+    y_p = year_p(y0)
+
+    assert torch.isfinite(y_k).all()
+    scale = float(y_p.abs().max())
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+
+
+def test_phosphorus_year_kernel_rejects_what_it_cannot_take(cuda_device):
+    year, _ = _phosphorus_year(8, 6, 24, cuda_device)
+    y0 = torch.ones((3, 8, 6), dtype=torch.float32, device=cuda_device)
+    before = imex_cuda.phosphorus_year_launches
+    for bad in (y0.double(), y0.cpu(), y0[:2], y0.transpose(1, 2).contiguous()
+                .transpose(1, 2)):
+        with pytest.raises(ValueError):
+            year(bad)
+    assert imex_cuda.phosphorus_year_launches == before

@@ -131,15 +131,24 @@ def test_unported_modes_raise(models):
 
 
 def test_port_imports_no_jax():
-    """every module of the port, and chip_smoke.py, load without jax"""
+    """every module of the port, and chip_smoke.py, load without jax, and
+    the phosphorus path's hooks run without loading it"""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
+        "import torch\n"
         "import newton_krylov_ooc_tpu_torch as pkg\n"
         "import newton_krylov_ooc_tpu_torch.cli.incore_spinup\n"
+        "import newton_krylov_ooc_tpu_torch.models.py_driver_2d.phosphorus\n"
         "for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(mod.name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from newton_krylov_ooc_tpu_torch.cli.incore_spinup import MODELINFO, build_axes\n"
+        "from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import PhosphorusKernel\n"
+        "k = PhosphorusKernel(*build_axes(4, 3), MODELINFO, device='cpu', n_steps=8)\n"
+        "x = k.init_iterate()\n"
+        "f = k.comp_fcn(x)\n"
+        "k.precond_apply(k.precond_setup(x), k.jvp(x, f, f))\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
         "assert not loaded, loaded\n"
     )
