@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's paths at full width (40 x 50 depth x
-ypos) through the hand-written CUDA year kernels: the py_driver_2d iage
-in-core spin-up (8760 IMEX steps a year, kernel iage_year) and the
-py_driver_2d phosphorus in-core spin-up (kernel phosphorus_year).
+"""GPU smoke run of the PyTorch port's paths at full width through the
+hand-written CUDA year kernels: the py_driver_2d iage in-core spin-up (40 x
+50 depth x ypos, 8760 IMEX steps a year, kernel iage_year), the
+py_driver_2d phosphorus in-core spin-up (kernel phosphorus_year) and the 3D
+irf_offline in-core spin-up at POP gx3 extents (60 x 116 x 100, 2000 steps
+a year, kernel transport3d_year).
 
     python3 chip_smoke.py
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, one line of numbers each; any failure raises and exits non-zero:
   0 device: the card's name and power limit, TF32 off;
-  1 build: both kernels from newton_krylov_ooc_tpu_torch/csrc/, one nvcc
+  1 build: every kernel from newton_krylov_ooc_tpu_torch/csrc/, one nvcc
     each, started together, with the compiler's register, spill and
     shared-memory report;
   2 iage_year against its plain PyTorch version at full size, with the
@@ -23,9 +25,18 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   5 the phosphorus Newton-Krylov solve (PhosphorusKernel +
     NewtonKrylovInCore, 730 steps a year, float32, F on the kernel and
     JVPs by forward mode), checked for convergence, positivity, launches,
-    and against a float64 plain evaluation of F at the solution.
-Then one JSON line describing each kernel and, last, one JSON line naming
-the device.
+    and against a float64 plain evaluation of F at the solution;
+  6 transport3d_year against its plain PyTorch year at gx3 (the JAX
+    bench's two-module family, T = 2), for a steady circulation (against the
+    plain float32 and float64 years, timed), a 12-month seasonal one and the
+    gas-exchange-coupled ABIO_DIC/DIC14 pair;
+  7 the gx3 spin-up (ShardedTransport3dKernel + NewtonKrylovInCore with the
+    JAX bench's settings, float32, F and JVPs on the kernel), checked for
+    convergence, for launches, and against a float64 plain evaluation of F
+    at the solution, with the seconds in F, JVPs and the preconditioner.
+Then one JSON line describing each kernel -- with the least time the card
+could take for its year (bound_ms, from the H100's published peaks) -- and,
+last, one JSON line naming the device.
 """
 
 import json
@@ -37,14 +48,19 @@ import time
 import numpy as np
 import torch
 
-from newton_krylov_ooc_tpu_torch.cli import incore_spinup
+from newton_krylov_ooc_tpu_torch.cli import incore_spinup, irf3d_spinup
 from newton_krylov_ooc_tpu_torch.core.incore import NewtonKrylovInCore
+from newton_krylov_ooc_tpu_torch.models.irf_offline import synthetic
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d import phosphorus, physics
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (
     IageKernel,
     PhosphorusKernel,
 )
-from newton_krylov_ooc_tpu_torch.ops import compute, imex_cuda
+from newton_krylov_ooc_tpu_torch.ops import compute, imex_cuda, transport3d_cuda
+from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
+    ShardedTransport3dKernel,
+    family_year_inputs,
+)
 
 NZ, NY, N_STEPS = 40, 50, 8760
 F32_TOL = 5e-5   # kernel vs f32 plain, relative to max|y|: f32 rounding
@@ -56,6 +72,36 @@ REPS = 5
 PHOS_STEPS = 730
 PHOS_SOLVE_TOL = 1e-4
 PHOS_MAX_NEWTON = 4
+# the JAX bench's gx3 3D spin-up (cli/irf3d_spinup.py)
+GX3 = irf3d_spinup.GX3
+GX3_MIN_STEPS = irf3d_spinup.GX3_MIN_STEPS
+GX3_SPECS = irf3d_spinup.GX3_SPECS
+GX3_SOLVER = irf3d_spinup.GX3_SOLVER
+
+# the least time the card could take: one H100 SXM's published peaks
+# (memory rate, dense float32 rate), against the bytes each year must move (each
+# input read once, each output written once) and the float32 operations
+# it does, counted once per cell from the kernels' code
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# kv_edge of csrc/imex_common.cuh: the mixed-layer ramp, two
+# antiderivatives, expf and the Peclet limiter, once per edge and step
+KV_EDGE_OPS = 35
+# csrc/iage_year.cu per cell, channel and step: the fused-flux tendency
+# twice (18 each), the stage state (2), the Heun Kahan add (6), the CN
+# Thomas solve with its Kahan add (28)
+IAGE_CELL_OPS = 72
+# csrc/phosphorus_year.cu per cell and step, all three tracers: tend3 twice
+# (71 each: three tendencies, uptake, remineralisation, sinking), stage
+# states (6), three Heun Kahan adds (18), three CN solves without the
+# diagonal (25 each)
+PHOS_CELL_OPS = 241
+# csrc/transport3d_year.cu per cell, tracer and step, each face once: two
+# upwind3 tendencies (81 and 83: a face value and flux of 24 in each
+# direction, the wet mask, the stage state, the divergence, recip_vol and
+# src), the Heun Kahan add (6), the CN Thomas solve with its Kahan add (28)
+T3D_CELL_OPS = 198
+CN_CELL_OPS = 28
 
 
 def phase(num, title, **numbers):
@@ -102,6 +148,47 @@ def timed_hook(fn, spent):
         spent[1] += 1
         return out
     return hook
+
+
+def bound(n_bytes, n_ops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its float32 rate"""
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / PEAK_F32_PER_S
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def grid2d_floats(nz, ny):
+    """the 2D kernels' constant grid fields (csrc/imex_common.cuh)"""
+    return (2 * nz * (ny - 1) + (nz - 1) * ny + 2 * ny + 2 * nz
+            + 2 * (nz - 1))
+
+
+def iage_bound(t_dim, nz, ny, n_steps):
+    n_bytes = 4 * (3 * t_dim * nz * ny + grid2d_floats(nz, ny))
+    n_ops = n_steps * (t_dim * nz * ny * IAGE_CELL_OPS
+                       + (nz - 1) * ny * KV_EDGE_OPS)
+    return bound(n_bytes, n_ops)
+
+
+def phosphorus_bound(nz, ny, n_steps):
+    n_bytes = 4 * (7 * nz * ny + grid2d_floats(nz, ny))
+    n_ops = n_steps * (nz * ny * PHOS_CELL_OPS + (nz - 1) * ny * KV_EDGE_OPS)
+    return bound(n_bytes, n_ops)
+
+
+def transport3d_bound(coef, kv, t_dim, n_steps):
+    """bound of one steady or seasonal uncoupled year: every present
+    coefficient field (all months), kv, dz_r, diag, src and y0 read once,
+    the year's end written once"""
+    nz, nlat, nlon = coef["wet"].shape
+    n = nz * nlat * nlon
+    fields = sum(coef[key].numel() for key in
+                 ("wet", "recip_vol", "t_e", "t_n", "t_t", "cond_e", "cond_n")
+                 if coef.get(key) is not None)
+    n_bytes = 4 * (fields + kv.numel() + nz + 4 * t_dim * n)
+    n_ops = t_dim * n * (n_steps * T3D_CELL_OPS + CN_CELL_OPS)
+    return bound(n_bytes, n_ops)
 
 
 def phosphorus_kernel_phase(depth, ypos, device):
@@ -181,6 +268,7 @@ def phosphorus_solve_phase(depth, ypos, device):
 
     imex_cuda.iage_year_launches = 0
     imex_cuda.phosphorus_year_launches = 0
+    transport3d_cuda.transport3d_year_launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     x, fcn, info = solver.solve(x0)
@@ -222,6 +310,129 @@ def phosphorus_solve_phase(depth, ypos, device):
     if not rel64 < PHOS_SOLVE_TOL:
         raise SystemExit(f"chip_smoke: f64 phosphorus residual at the "
                          f"solution {rel64:.3e}")
+    return launches
+
+
+def _to(coef, device, dtype):
+    return {key: None if arr is None else arr.to(device, dtype)
+            for key, arr in coef.items()}
+
+
+def transport3d_kernel_phase(device):
+    """phase 6: transport3d_year against its plain year at gx3, for a
+    steady, a seasonal and a coupled year; returns (max abs error, kernel
+    ms, plain f32 ms, bound ms, bounded by) of the timed steady year"""
+    nz, nlat, nlon = GX3
+    steady = synthetic.gen_circulation(nz, nlat, nlon)
+    seasonal = synthetic.gen_circulation(nz, nlat, nlon, n_seasons=12)
+    span = (0.0, transport3d_cuda.SEC_PER_YEAR)
+    rng = np.random.default_rng(3)
+    cases = (("steady", steady, GX3_SPECS), ("seasonal", seasonal, GX3_SPECS),
+             ("coupled", steady, irf3d_spinup.ABIO_SPECS))
+    worst_abs, timing = 0.0, None
+    for label, circ, specs in cases:
+        n_steps = max(GX3_MIN_STEPS, synthetic.stable_steps_per_year(circ))
+        coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, specs)
+        args = (kv, dz_r, diag, src, span, n_steps)
+        t_dim = diag.shape[0]
+        wet = torch.as_tensor(circ["mask"] > 0, dtype=torch.float32,
+                              device=device)
+        y0 = wet * torch.as_tensor(rng.uniform(0.0, 1.0, (t_dim,) + GX3),
+                                   dtype=torch.float32, device=device)
+        year_k = transport3d_cuda.build_transport3d_year(
+            coef, *args, couple, device=device)
+        if label == "steady":
+            y_k, ms = kernel_timing(year_k, y0)
+        else:
+            y_k, ms = timed(year_k, y0)
+        y_32, ms_32 = timed(transport3d_cuda.build_transport3d_year_plain(
+            _to(coef, device, torch.float32), *args, couple), y0)
+        scale = float(y_32.abs().max())
+        numbers = {}
+        if label == "steady":
+            y_64, ms_64 = timed(transport3d_cuda.build_transport3d_year_plain(
+                _to(coef, device, torch.float64), *args, couple), y0.double())
+            scale = float(y_64.abs().max())
+            numbers = {"rel_err_f64": rel_err(y_k, y_64, scale),
+                       "plain_f64_ms_per_year": ms_64}
+        err_32 = rel_err(y_k, y_32, scale)
+        phase(6, f"transport3d_year vs plain ({label}, {nz}x{nlat}x{nlon}, "
+                 f"T={t_dim}, {n_steps} steps)",
+              rel_err_f32=err_32, **numbers, kernel_ms_per_year=ms,
+              plain_f32_ms_per_year=ms_32,
+              cuda_launches_per_year=transport3d_cuda.cuda_launches_per_year(
+                  n_steps),
+              max_abs_y=scale)
+        if not (torch.isfinite(y_k).all() and err_32 <= F32_TOL
+                and numbers.get("rel_err_f64", 0.0) <= F64_TOL):
+            raise SystemExit(
+                f"chip_smoke: transport3d_year disagrees with the plain year "
+                f"({label}): {err_32:.3e} vs f32 (bound {F32_TOL}), "
+                f"{numbers.get('rel_err_f64')} vs f64 (bound {F64_TOL})"
+            )
+        if float((y_k * (1.0 - wet)).abs().max()) != 0.0:
+            raise SystemExit(f"chip_smoke: transport3d_year wets land ({label})")
+        worst_abs = max(worst_abs, float((y_k - y_32).abs().max()))
+        if label == "steady":
+            timing = (ms, ms_32, *transport3d_bound(coef, kv, t_dim, n_steps))
+    return (worst_abs, *timing)
+
+
+def transport3d_solve_phase(device):
+    """phase 7: the gx3 spin-up as the JAX bench drives it
+    (ShardedTransport3dKernel + NewtonKrylovInCore); returns the kernel's
+    launches"""
+    circ = synthetic.gen_circulation(*GX3)
+    n_steps = max(GX3_MIN_STEPS, synthetic.stable_steps_per_year(circ))
+    kernel = ShardedTransport3dKernel(circ, GX3_SPECS, n_steps, device=device,
+                                      dtype=torch.float32)
+    if not kernel.use_kernel:
+        raise SystemExit("chip_smoke: ShardedTransport3dKernel did not "
+                         "dispatch to the kernel")
+    spent_f, spent_jvp, spent_pc = [0.0, 0], [0.0, 0], [0.0, 0]
+    kernel.comp_fcn = timed_hook(kernel.comp_fcn, spent_f)
+    kernel.jvp = timed_hook(kernel.jvp, spent_jvp)
+    kernel.precond_setup = timed_hook(kernel.precond_setup, spent_pc)
+    kernel.precond_apply = timed_hook(kernel.precond_apply, spent_pc)
+    solver = NewtonKrylovInCore(kernel, **GX3_SOLVER)
+    x0 = kernel.init_iterate()
+
+    imex_cuda.iage_year_launches = 0
+    imex_cuda.phosphorus_year_launches = 0
+    transport3d_cuda.transport3d_year_launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    x, fcn, info = solver.solve(x0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = transport3d_cuda.transport3d_year_launches
+
+    rel = info["fcn_norm"] / info["x_norm"]
+    check = ShardedTransport3dKernel(circ, GX3_SPECS, n_steps, device=device,
+                                     dtype=torch.float64)
+    x64 = x.double()
+    rel64 = (check.norm(check.comp_fcn(x64)) / check.norm(x64)).max().item()
+    phase(7, f"gx3 solve ({n_steps} steps)",
+          newton_iterations=info["iterations"],
+          krylov_iterations=[int(k) for k in info["krylov_iterations"]],
+          seconds=seconds, f_seconds=spent_f[0], f_evals=spent_f[1],
+          jvp_seconds=spent_jvp[0], jvp_evals=spent_jvp[1],
+          precond_seconds=spent_pc[0], precond_calls=spent_pc[1],
+          max_rel_resid=float(rel.max()), f64_plain_rel_resid=rel64,
+          kernel_launches=launches)
+    if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
+        raise SystemExit("chip_smoke: non-finite values in the gx3 solution")
+    if not (rel < GX3_SOLVER["newton_rel_tol"]).all():
+        raise SystemExit(f"chip_smoke: gx3 residual {rel.max():.3e} >= "
+                         f"{GX3_SOLVER['newton_rel_tol']}")
+    if launches < spent_f[1] + spent_jvp[1]:
+        raise SystemExit(
+            f"chip_smoke: {launches} transport3d_year launches for "
+            f"{spent_f[1]} F evaluations and {spent_jvp[1]} JVPs"
+        )
+    if not rel64 < 1e-4:
+        raise SystemExit(f"chip_smoke: f64 gx3 residual at the solution "
+                         f"{rel64:.3e}")
     return launches
 
 
@@ -298,6 +509,7 @@ def main():
     # -- 3: the solve through the CLI entry point, counting kernel launches
     imex_cuda.iage_year_launches = 0
     imex_cuda.phosphorus_year_launches = 0
+    transport3d_cuda.transport3d_year_launches = 0
     kernel, x, fcn, info = incore_spinup.main([
         str(NZ), str(NY), str(N_STEPS), "--device", "cuda",
         "--newton-rel-tol", str(SOLVE_TOL),
@@ -335,6 +547,14 @@ def main():
                                                                device)
     phos_launches = phosphorus_solve_phase(depth, ypos, device)
 
+    # -- 6, 7: the 3D transport kernel, then the gx3 spin-up
+    t3d_abs, t3d_ms, t3d_plain_ms, t3d_bound, t3d_by = (
+        transport3d_kernel_phase(device))
+    t3d_launches = transport3d_solve_phase(device)
+
+    # no single PyTorch call computes an IMEX year: library_ms is null
+    iage_bound_ms, iage_by = iage_bound(2, NZ, NY, N_STEPS)
+    phos_bound_ms, phos_by = phosphorus_bound(NZ, NY, N_STEPS)
     print(json.dumps({"kernels": [{
         "name": "iage_year",
         "route": "cuda",
@@ -344,6 +564,9 @@ def main():
         "max_abs_err": worst_abs,
         "ms": statistics.median(kernel_ms),
         "plain_ms": statistics.median(plain_ms),
+        "bound_ms": iage_bound_ms,
+        "bound_by": iage_by,
+        "library_ms": None,
     }, {
         "name": "phosphorus_year",
         "route": "cuda",
@@ -353,6 +576,21 @@ def main():
         "max_abs_err": phos_abs,
         "ms": phos_ms,
         "plain_ms": phos_plain_ms,
+        "bound_ms": phos_bound_ms,
+        "bound_by": phos_by,
+        "library_ms": None,
+    }, {
+        "name": "transport3d_year",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/transport3d_year.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/transport3d_pallas.py:176",
+        "launches": t3d_launches,
+        "max_abs_err": t3d_abs,
+        "ms": t3d_ms,
+        "plain_ms": t3d_plain_ms,
+        "bound_ms": t3d_bound,
+        "bound_by": t3d_by,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -15,12 +15,11 @@ import time
 
 import torch
 
-from newton_krylov_ooc_tpu.core.spatial_axis import (
+from ..core.incore import NewtonKrylovInCore
+from ..core.spatial_axis import (
     spatial_axis_defn_dict,
     spatial_axis_from_defn_dict,
 )
-
-from ..core.incore import NewtonKrylovInCore
 from ..models.py_driver_2d.incore import IageKernel
 from ..ops.compute import resolve_device
 

@@ -32,8 +32,6 @@ import logging
 import numpy as np
 import torch
 
-from newton_krylov_ooc_tpu.utils.regions import region_mean_weights
-
 from ...ops.compute import resolve_device
 from ...ops.imex_cuda import (
     build_iage_year,
@@ -41,6 +39,7 @@ from ...ops.imex_cuda import (
     build_phosphorus_year,
     build_phosphorus_year_plain,
 )
+from ...utils.regions import region_mean_weights
 from . import physics
 from .iage import SURF_SLOW_FACTOR, surf_restore_rate
 from .phosphorus import DEFAULT_PARAMS, light_lim_2d, phosphorus_jac

@@ -26,8 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from newton_krylov_ooc_tpu.utils.helpers import eval_expr
-
+from ...utils.helpers import eval_expr
 from . import physics
 
 DEFAULT_PARAMS = {

@@ -26,7 +26,9 @@ Each wrapper takes the plain version only on the CPU; for a CUDA float32
 tensor it launches its kernel or raises.  Each kernel source is compiled
 with nvcc at first use into <repo>/build/torch_kernels/, keyed on a hash of
 its sources and flags, into a shared library with a plain C interface that
-ctypes loads.
+ctypes loads.  The build knows every kernel source of the port (SOURCES),
+the 3D transport year of ops/transport3d_cuda.py included, so one
+build_libraries() call compiles them all at once.
 """
 
 from __future__ import annotations
@@ -47,9 +49,17 @@ from .compute import resolve_device
 from .imex import imex_year
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# kernel name -> its source; every source also includes COMMON
-SOURCES = {"iage_year": "iage_year.cu", "phosphorus_year": "phosphorus_year.cu"}
-COMMON = ("imex_common.cuh",)
+# kernel name -> its source, and the headers under csrc/ that it includes
+SOURCES = {
+    "iage_year": "iage_year.cu",
+    "phosphorus_year": "phosphorus_year.cu",
+    "transport3d_year": "transport3d_year.cu",
+}
+INCLUDES = {
+    "iage_year": ("imex_common.cuh",),
+    "phosphorus_year": ("imex_common.cuh",),
+    "transport3d_year": (),
+}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,10 +93,10 @@ def _nvcc():
 
 
 def _library_path(name):
-    """where kernel `name`'s library goes: keyed on its source, the shared
-    headers and the flags"""
+    """where kernel `name`'s library goes: keyed on its source, the headers
+    it includes and the flags"""
     digest = hashlib.sha256()
-    for fname in (SOURCES[name], *COMMON):
+    for fname in (SOURCES[name], *INCLUDES[name]):
         digest.update((CSRC / fname).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
@@ -127,21 +137,15 @@ def build_libraries(names=tuple(SOURCES)):
     return built
 
 
-def _library(name):
+def load_library(name, signatures):
+    """kernel `name`'s library (built first if needed), loaded once with
+    ctypes; signatures: {suffix: (argtypes, restype)} of its C functions
+    <name>_<suffix>, besides <name>_error_string, which every kernel has"""
     if name not in _libs:
         lib_path, _ = build_libraries((name,))[name]
         lib = ctypes.CDLL(str(lib_path))
-        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-        shape = [c_int] * _SHAPE_ARGS[name]
-        signatures = {
-            "fields_len": (shape, ctypes.c_long),
-            "smem_bytes": ([c_int] * 2, ctypes.c_long),
-            "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
-            "error_string": ([c_int], ctypes.c_char_p),
-            # y0, out, fields, shape, n_steps, t0, dt, stream
-            "launch": ([c_ptr] * 3 + shape + [c_int]
-                       + [ctypes.c_float] * 2 + [c_ptr], c_int),
-        }
+        signatures = {**signatures,
+                      "error_string": ([ctypes.c_int], ctypes.c_char_p)}
         for suffix, (argtypes, restype) in signatures.items():
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes, fn.restype = argtypes, restype
@@ -149,7 +153,20 @@ def _library(name):
     return _libs[name]
 
 
-def _cuda_error(lib, name, err, what):
+def _library(name):
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    shape = [c_int] * _SHAPE_ARGS[name]
+    return load_library(name, {
+        "fields_len": (shape, ctypes.c_long),
+        "smem_bytes": ([c_int] * 2, ctypes.c_long),
+        "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
+        # y0, out, fields, shape, n_steps, t0, dt, stream
+        "launch": ([c_ptr] * 3 + shape + [c_int]
+                   + [ctypes.c_float] * 2 + [c_ptr], c_int),
+    })
+
+
+def cuda_error(lib, name, err, what):
     msg = getattr(lib, f"{name}_error_string")(err).decode()
     return RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
@@ -161,7 +178,7 @@ def _check_smem(lib, name, nz, ny, device, what):
     limit = ctypes.c_int(0)
     err = getattr(lib, f"{name}_smem_optin")(device.index, ctypes.byref(limit))
     if err:
-        raise _cuda_error(lib, name, err,
+        raise cuda_error(lib, name, err,
                           "querying the shared-memory opt-in limit")
     if smem > limit.value:
         raise ValueError(
@@ -322,7 +339,7 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
                 t_dim, nz, ny, int(n_steps), t0, dt, stream,
             )
         if err:
-            raise _cuda_error(lib, "iage_year", err, "iage_year_kernel launch")
+            raise cuda_error(lib, "iage_year", err, "iage_year_kernel launch")
         iage_year_launches += 1
         return out
 
@@ -421,7 +438,7 @@ def build_phosphorus_year(grid, params, light_lim, t_span, n_steps, *,
                 nz, ny, int(n_steps), t0, dt, stream,
             )
         if err:
-            raise _cuda_error(lib, "phosphorus_year", err,
+            raise cuda_error(lib, "phosphorus_year", err,
                               "phosphorus_year_kernel launch")
         phosphorus_year_launches += 1
         return out

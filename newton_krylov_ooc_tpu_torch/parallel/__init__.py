@@ -1,0 +1,1 @@
+"""newton_krylov_ooc_tpu_torch.parallel"""

@@ -180,9 +180,9 @@ echo built > "$out"
 
 def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     """the kernel build: one nvcc per source, each library keyed on its
-    source, the shared header and the flags, the ptxas report beside it,
-    nothing rebuilt while the sources hold, and a failure that names its
-    source once every nvcc has ended"""
+    source, the headers it includes and the flags, the ptxas report beside
+    it, nothing rebuilt while the sources hold, and a failure that names
+    its source once every nvcc has ended"""
     bindir = tmp_path / "bin"
     bindir.mkdir()
     (bindir / "nvcc").write_text(FAKE_NVCC)
@@ -195,7 +195,8 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(imex_cuda, "BUILD_DIR", tmp_path / "build")
 
     built = imex_cuda.build_libraries()
-    assert sorted(built) == ["iage_year", "phosphorus_year"]
+    assert sorted(built) == ["iage_year", "phosphorus_year",
+                             "transport3d_year"]
     for name, (path, seconds) in built.items():
         assert path.parent == tmp_path / "build" and path.name.startswith(name)
         assert path.exists() and seconds > 0.0
@@ -210,13 +211,16 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     assert again["iage_year"] == (built["iage_year"][0], 0.0)
     assert again["phosphorus_year"][0] != built["phosphorus_year"][0]
 
-    # the shared header keys both; a failing source is named, the other built
+    # the shared 2D header keys both 2D kernels and not the 3D one; a
+    # failing source is named, the others built
     header = csrc / "imex_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     monkeypatch.setenv("FAIL_ON", "phosphorus_year")
     with pytest.raises(RuntimeError, match="phosphorus_year.cu") as failed:
         imex_cuda.build_libraries()
     assert "iage_year.cu" not in str(failed.value)
+    assert imex_cuda._library_path("transport3d_year") == (
+        built["transport3d_year"][0])
     assert imex_cuda._library_path("iage_year") != built["iage_year"][0]
     assert imex_cuda._library_path("iage_year").exists()
     assert not imex_cuda._library_path("phosphorus_year").exists()

@@ -1,6 +1,6 @@
-"""the CUDA year kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu)
-against their plain PyTorch versions; need an NVIDIA Hopper card and nvcc,
-and skip without a card
+"""the CUDA year kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu,
+csrc/transport3d_year.cu) against their plain PyTorch versions; need an
+NVIDIA Hopper card and nvcc, and skip without a card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
 """
@@ -10,12 +10,18 @@ import pytest
 import torch
 
 from newton_krylov_ooc_tpu_torch.cli.incore_spinup import MODELINFO, build_axes
+from newton_krylov_ooc_tpu_torch.cli.irf3d_spinup import ABIO_SPECS, FAMILY_SPECS
+from newton_krylov_ooc_tpu_torch.models.irf_offline import synthetic
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d import phosphorus, physics
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     SURF_SLOW_FACTOR,
     surf_restore_rate,
 )
-from newton_krylov_ooc_tpu_torch.ops import imex_cuda
+from newton_krylov_ooc_tpu_torch.ops import imex_cuda, transport3d_cuda
+from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
+    ShardedTransport3dKernel,
+    family_year_inputs,
+)
 
 torch.set_num_threads(1)
 
@@ -119,3 +125,69 @@ def test_phosphorus_year_kernel_rejects_what_it_cannot_take(cuda_device):
         with pytest.raises(ValueError):
             year(bad)
     assert imex_cuda.phosphorus_year_launches == before
+
+
+def _transport3d_years(case, device, shape=(6, 12, 10), n_steps=480):
+    """(kernel year, plain f32 year, y0) of a small 3D family year with a
+    masked column and a nonzero vertical transport"""
+    nz, nlat, nlon = shape
+    mask = np.ones(shape, np.int32)
+    mask[:, 3, 2] = 0
+    mask[2:, 5, 4] = 0
+    circ = synthetic.gen_circulation(nz, nlat, nlon, mask=mask,
+                                     n_seasons=4 if case == "seasonal" else None)
+    rng = np.random.default_rng(17)
+    circ["WTT"] = rng.uniform(-2.0e9, 2.0e9, circ["WTT"].shape)
+    specs = ABIO_SPECS if case == "coupled" else FAMILY_SPECS
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, specs)
+    args = (kv, dz_r, diag, src, (0.0, transport3d_cuda.SEC_PER_YEAR),
+            n_steps)
+    coef32 = {key: None if arr is None else arr.to(device, torch.float32)
+              for key, arr in coef.items()}
+    y0 = torch.as_tensor(rng.uniform(0.0, 1.0, (diag.shape[0],) + shape)
+                         * (mask > 0), dtype=torch.float32, device=device)
+    return (transport3d_cuda.build_transport3d_year(coef, *args, couple,
+                                                    device=device),
+            transport3d_cuda.build_transport3d_year_plain(coef32, *args,
+                                                          couple),
+            y0)
+
+
+@pytest.mark.parametrize("case", ["steady", "coupled", "seasonal"])
+def test_transport3d_year_kernel_matches_plain(cuda_device, case):
+    year_k, year_p, y0 = _transport3d_years(case, cuda_device)
+    before = transport3d_cuda.transport3d_year_launches
+    y_k = year_k(y0)
+    torch.cuda.synchronize()
+    assert transport3d_cuda.transport3d_year_launches == before + 1
+    y_p = year_p(y0)
+
+    assert torch.isfinite(y_k).all()
+    scale = float(y_p.abs().max())
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+    assert float((y_k - y0).abs().max()) / scale > 1e-3  # the year moved y
+    assert float(y_k[:, :, 3, 2].abs().max()) == 0.0  # land stays dry
+
+
+def test_transport3d_year_kernel_rejects_what_it_cannot_take(cuda_device):
+    year, _, y0 = _transport3d_years("steady", cuda_device, n_steps=8)
+    before = transport3d_cuda.transport3d_year_launches
+    for bad in (y0.double(), y0.cpu(), y0[:1], y0.transpose(2, 3).contiguous()
+                .transpose(2, 3)):
+        with pytest.raises(ValueError):
+            year(bad)
+    assert transport3d_cuda.transport3d_year_launches == before
+
+
+def test_transport3d_kernel_runs_the_cuda_year(cuda_device):
+    """F and the JVP of a float32 state on the card go through the kernel"""
+    circ = synthetic.gen_circulation(6, 12, 10)
+    kernel = ShardedTransport3dKernel(circ, FAMILY_SPECS, 480,
+                                      device=cuda_device)
+    assert kernel.use_kernel
+    x = kernel.init_iterate()
+    before = transport3d_cuda.transport3d_year_launches
+    fcn = kernel.comp_fcn(x)
+    kernel.jvp(x, fcn, fcn)
+    torch.cuda.synchronize()
+    assert transport3d_cuda.transport3d_year_launches == before + 2

@@ -1,8 +1,10 @@
 """the slice as a whole: the port's in-core Newton-Krylov spin-up against
 the JAX package's, float64, on the 10x6 grid; checkpoints across packages;
-the port imports no jax; TF32 stays off"""
+the port imports neither jax nor the JAX package; TF32 stays off"""
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -131,8 +133,9 @@ def test_unported_modes_raise(models):
 
 
 def test_port_imports_no_jax():
-    """every module of the port, and chip_smoke.py, load without jax, and
-    the phosphorus path's hooks run without loading it"""
+    """every module of the port, and chip_smoke.py, load without jax and
+    without the JAX package, and the phosphorus and 3D paths' hooks run
+    without loading either"""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import torch\n"
@@ -149,7 +152,17 @@ def test_port_imports_no_jax():
         "x = k.init_iterate()\n"
         "f = k.comp_fcn(x)\n"
         "k.precond_apply(k.precond_setup(x), k.jvp(x, f, f))\n"
-        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "from newton_krylov_ooc_tpu_torch.cli.irf3d_spinup import ABIO_SPECS\n"
+        "from newton_krylov_ooc_tpu_torch.models.irf_offline import synthetic\n"
+        "from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (\n"
+        "    ShardedTransport3dKernel)\n"
+        "circ = synthetic.gen_circulation(3, 4, 4, n_seasons=2)\n"
+        "k = ShardedTransport3dKernel(circ, ABIO_SPECS, 8, device='cpu')\n"
+        "x = k.init_iterate()\n"
+        "f = k.comp_fcn(x)\n"
+        "k.precond_apply(k.precond_setup(x), k.jvp(x, f, f))\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                ('jax', 'jaxlib', 'newton_krylov_ooc_tpu'))\n"
         "assert not loaded, loaded\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -157,6 +170,86 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("helper", ["spatial_axis", "region_mean_weights",
+                                    "eval_expr"])
+def test_copied_helpers_match_jax_package(helper):
+    """the port's own copies of the JAX package's framework-free helpers
+    give the JAX package's results"""
+    if helper == "spatial_axis":
+        from newton_krylov_ooc_tpu.core import spatial_axis as jax_axis
+        from newton_krylov_ooc_tpu_torch.core import spatial_axis as axis
+
+        for kwargs in ({"nlevs": 40, "edge_end": 4000.0,
+                        "delta_ratio_max": 19.0},
+                       {"axisname": "ypos", "nlevs": 6, "edge_start": 0.0,
+                        "edge_end": 50.0e5, "delta_start": 1.0e5}):
+            got = axis.spatial_axis_from_defn_dict(
+                axis.spatial_axis_defn_dict(**kwargs))
+            ref = jax_axis.spatial_axis_from_defn_dict(
+                jax_axis.spatial_axis_defn_dict(**kwargs))
+            for name in ("edges", "mid", "delta", "delta_r", "delta_mid",
+                         "delta_mid_r"):
+                np.testing.assert_array_equal(getattr(got, name),
+                                              getattr(ref, name))
+            assert (len(got), got.units, got.defn_dict_values) == (
+                len(ref), ref.units, ref.defn_dict_values)
+        with pytest.raises(ValueError, match="unknown key"):
+            axis.spatial_axis_defn_dict(nlev=3)
+    elif helper == "region_mean_weights":
+        from newton_krylov_ooc_tpu.utils.regions import (
+            region_mean_weights as jax_weights,
+        )
+        from newton_krylov_ooc_tpu_torch.utils.regions import (
+            region_mean_weights,
+        )
+
+        rng = np.random.default_rng(2)
+        mask = rng.integers(0, 4, (5, 7))
+        weight = rng.uniform(0.5, 2.0, (5, 7))
+        np.testing.assert_array_equal(region_mean_weights(mask, weight),
+                                      jax_weights(mask, weight))
+    else:
+        from newton_krylov_ooc_tpu.utils.helpers import eval_expr as jax_eval
+        from newton_krylov_ooc_tpu_torch.utils.helpers import eval_expr
+
+        for expr in ("1.0 / (365.0 * 86400.0)", "-2 ** 3 + 4", "0.5e-3"):
+            assert eval_expr(expr) == jax_eval(expr)
+        with pytest.raises(TypeError):
+            eval_expr("__import__('os')")
+
+
+def _import_roots(tree):
+    """the top-level package of every absolute import in a parsed module"""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax_package():
+    """no source file of the port, nor chip_smoke.py, imports jax or the
+    JAX package (newton_krylov_ooc_tpu), even a module of it that would
+    load without jax"""
+    root = pathlib.Path(REPO)
+    files = sorted((root / "newton_krylov_ooc_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    found = {
+        str(path.relative_to(root)): roots
+        for path in files
+        if (roots := sorted(
+            set(_import_roots(ast.parse(path.read_text())))
+            & {"jax", "jaxlib", "newton_krylov_ooc_tpu"}
+        ))
+    }
+    assert not found, found
+    # the scan itself sees such an import
+    probe = "from newton_krylov_ooc_tpu.utils import helpers\nimport jax.numpy\n"
+    assert sorted(_import_roots(ast.parse(probe))) == [
+        "jax", "newton_krylov_ooc_tpu"]
 
 
 def test_tf32_off_after_compute_import():
