@@ -4,9 +4,11 @@ hand-written CUDA year kernels: the py_driver_2d iage in-core spin-up (40 x
 50 depth x ypos, 8760 IMEX steps a year, kernel iage_year), the
 py_driver_2d phosphorus in-core spin-up (kernel phosphorus_year) and the 3D
 irf_offline in-core spin-up at POP gx3 extents (60 x 116 x 100, 2000 steps
-a year, kernel transport3d_year).
+a year, kernel transport3d_year), and the streaming 3D year at POP gx1
+extents (60 x 384 x 320, 2000 steps a year, kernel transport3d_stream).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and nvcc.
 Phases, one line of numbers each; any failure raises and exits non-zero:
@@ -15,13 +17,16 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     each, started together, with the compiler's register, spill and
     shared-memory report;
   2 iage_year against its plain PyTorch version at full size, with the
-    aging source on (F) and zeroed (the JVP route), and both timed;
+    aging source on (F) and zeroed (the JVP route), both timed: F's full
+    year against the plain f32 year, the rest (f64, the JVP route) over the
+    first tenth of the year;
   3 the iage Newton-Krylov solve through the port's CLI entry point,
     checked for convergence, for launches of the kernel, and against a
     float64 plain evaluation of F at the solution;
   4 phosphorus_year against its plain PyTorch version at 40 x 50 x 8760,
     from the initial iterate and from a constant 0.5, timed, with the
-    one-year drift of total phosphorus;
+    kernel's one-year drift of total phosphorus: the initial iterate's full
+    year against the plain f32 year, the rest over the first tenth;
   5 the phosphorus Newton-Krylov solve (PhosphorusKernel +
     NewtonKrylovInCore, 730 steps a year, float32, F on the kernel and
     JVPs by forward mode), checked for convergence, positivity, launches,
@@ -33,12 +38,21 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   7 the gx3 spin-up (ShardedTransport3dKernel + NewtonKrylovInCore with the
     JAX bench's settings, float32, F and JVPs on the kernel), checked for
     convergence, for launches, and against a float64 plain evaluation of F
-    at the solution, with the seconds in F, JVPs and the preconditioner.
+    at the solution, with the seconds in F, JVPs and the preconditioner;
+  8 transport3d_stream at gx1, uncut, for the JAX bench's gx1 inputs: the
+    steady upwind3 year (T = 1, recip_vol factored) against its plain float32
+    and float64 years, timed beside transport3d_year on the same inputs;
+    the stencil year in float32 and in bfloat16 coefficients, the bench's
+    four-module factored family and a 12-month seasonal year, each against
+    its plain year at 400 steps and timed at 2000; the coupled
+    ABIO_DIC/DIC14 pair against its plain year at 400 steps.  Its timed runs
+    are the path whose launches the kernel's JSON entry counts.
 Then one JSON line describing each kernel -- with the least time the card
 could take for its year (bound_ms, from the H100's published peaks) -- and,
 last, one JSON line naming the device.
 """
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -56,13 +70,24 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (
     IageKernel,
     PhosphorusKernel,
 )
-from newton_krylov_ooc_tpu_torch.ops import compute, imex_cuda, transport3d_cuda
+from newton_krylov_ooc_tpu_torch.ops import (
+    compute,
+    imex_cuda,
+    transport3d_cuda,
+    transport3d_stream_cuda,
+)
+from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
     family_year_inputs,
 )
 
 NZ, NY, N_STEPS = 40, 50, 8760
+# the 2D kernels run their full year, timed and held against one plain f32
+# year; the other comparisons (f64, and the second input) run over the
+# first tenth of the year with the same dt, which keeps the run's plain
+# PyTorch years short
+CHECK_STEPS = N_STEPS // 10
 F32_TOL = 5e-5   # kernel vs f32 plain, relative to max|y|: f32 rounding
 F64_TOL = 1e-4   # kernel vs f64 plain: Kahan keeps f32 near f64
 SOLVE_TOL = 1e-5
@@ -102,6 +127,24 @@ PHOS_CELL_OPS = 241
 # src), the Heun Kahan add (6), the CN Thomas solve with its Kahan add (28)
 T3D_CELL_OPS = 198
 CN_CELL_OPS = 28
+# the JAX bench's gx1 sections (bench.py:838-983, 1205-1352): POP gx1v7
+# extents, at least 2000 steps a year; the plain years that check the
+# stencil, family, seasonal and coupled years run 400 steps (stable: the
+# synthetic circulation needs 365)
+GX1 = (60, 384, 320)
+GX1_MIN_STEPS = 2000
+GX1_CHECK_STEPS = 400
+GX1_REPS = 3
+BF16_TOL = 5e-4           # B5 in bf16 coefficients vs its own plain year
+STENCIL_VS_UPWIND = 5e-4  # the JAX tests' bounds: stencil year vs upwind3
+BF16_VS_UPWIND = 2e-2
+# the bench's four-module gx1 family (bench.py:1226-1233)
+GX1_FAMILY_SPECS = [
+    {"name": "t0"},
+    {"name": "t1", "sink_rate_per_year": 1.0 / 50.0},
+    {"name": "t2", "source_per_year": 1.0e-3, "sink_rate_per_year": 0.02},
+    {"name": "t3", "surf_restore_pv_cm_s": 2.0e-4, "surf_restore_target": 1.0},
+]
 
 
 def phase(num, title, **numbers):
@@ -122,10 +165,31 @@ def rel_err(a, b, scale):
     return float((a.double() - b.double()).abs().max()) / scale
 
 
+def tenth(args):
+    """a year builder's arguments (..., t_span, n_steps) cut to the first
+    tenth of the year, with the same dt"""
+    t_span, n_steps = args[-2:]
+    t_end = t_span[0] + (t_span[1] - t_span[0]) * CHECK_STEPS / n_steps
+    return (*args[:-2], (t_span[0], t_end), CHECK_STEPS)
+
+
+def reset_counts():
+    """every kernel's launch count to 0"""
+    imex_cuda.iage_year_launches = 0
+    imex_cuda.phosphorus_year_launches = 0
+    transport3d_cuda.transport3d_year_launches = 0
+    transport3d_stream_cuda.transport3d_stream_launches = 0
+
+
 def kernel_timing(year, y0):
     """(result, median ms) of REPS synchronised runs after one warm-up"""
+    return kernel_timing_reps(year, y0, REPS)
+
+
+def kernel_timing_reps(year, y0, reps):
+    """(result, median ms) of `reps` synchronised runs after one warm-up"""
     timed(year, y0)
-    runs = [timed(year, y0) for _ in range(REPS)]
+    runs = [timed(year, y0) for _ in range(reps)]
     return runs[-1][0], statistics.median(run[1] for run in runs)
 
 
@@ -213,40 +277,50 @@ def phosphorus_kernel_phase(depth, ypos, device):
         "const_0.5": torch.full((3, NZ, NY), 0.5, dtype=torch.float32,
                                 device=device),
     }
+    args32 = plain_args[torch.float32]
+    short_k = imex_cuda.build_phosphorus_year(*tenth(args32), device=device)
     worst_abs, kernel_ms, plain_ms = 0.0, [], []
     for label, y0 in inputs.items():
         y_k, ms = kernel_timing(year_k, y0)
-        y_32, ms_32 = timed(
-            imex_cuda.build_phosphorus_year_plain(*plain_args[torch.float32]),
-            y0)
-        numbers = {}
-        scale = float(y_32.abs().max())
         p0 = total_p(depth, ypos, y0)
+        numbers = {}
         if label == "init_iterate":
-            y_64, ms_64 = timed(
-                imex_cuda.build_phosphorus_year_plain(
-                    *plain_args[torch.float64]), y0.double())
-            scale = float(y_64.abs().max())
+            # the full year against the plain f32 year, timed; f64 over a tenth
+            y_32, ms_32 = timed(imex_cuda.build_phosphorus_year_plain(*args32),
+                                y0)
+            y_s = short_k(y0)
+            y_64, ms_64 = timed(imex_cuda.build_phosphorus_year_plain(
+                *tenth(plain_args[torch.float64])), y0.double())
             numbers = {
-                "rel_err_f64": rel_err(y_k, y_64, scale),
-                "plain_f64_ms_per_year": ms_64,
-                "p_drift_plain_f64": abs(total_p(depth, ypos, y_64) - p0) / p0,
+                "rel_err_f64_tenth": rel_err(y_s, y_64,
+                                             float(y_64.abs().max())),
+                "plain_f64_ms_per_tenth": ms_64,
+                "p_drift_plain_f64_tenth":
+                    abs(total_p(depth, ypos, y_64) - p0) / p0,
+                "plain_f32_ms_per_year": ms_32,
             }
-        err_32 = rel_err(y_k, y_32, scale)
+            ref, kernel_y = y_32, y_k
+            plain_ms.append(ms_32)
+        else:
+            ref, _ = timed(imex_cuda.build_phosphorus_year_plain(
+                *tenth(args32)), y0)
+            kernel_y = short_k(y0)
+        scale = float(ref.abs().max())
+        err_32 = rel_err(kernel_y, ref, scale)
         phase(4, f"phosphorus_year vs plain ({label})", rel_err_f32=err_32,
-              **numbers, kernel_ms_per_year=ms, plain_f32_ms_per_year=ms_32,
+              compared_steps=N_STEPS if ref is y_32 else CHECK_STEPS,
+              **numbers, kernel_ms_per_year=ms,
               p_drift_kernel=abs(total_p(depth, ypos, y_k) - p0) / p0,
               max_abs_y=scale)
         if not (torch.isfinite(y_k).all() and err_32 <= F32_TOL
-                and numbers.get("rel_err_f64", 0.0) <= F64_TOL):
+                and numbers.get("rel_err_f64_tenth", 0.0) <= F64_TOL):
             raise SystemExit(
                 f"chip_smoke: phosphorus_year disagrees with the plain year "
                 f"({label}): {err_32:.3e} vs f32 (bound {F32_TOL}), "
-                f"{numbers.get('rel_err_f64')} vs f64 (bound {F64_TOL})"
+                f"{numbers.get('rel_err_f64_tenth')} vs f64 (bound {F64_TOL})"
             )
-        worst_abs = max(worst_abs, float((y_k - y_32).abs().max()))
+        worst_abs = max(worst_abs, float((kernel_y - ref).abs().max()))
         kernel_ms.append(ms)
-        plain_ms.append(ms_32)
     return worst_abs, statistics.median(kernel_ms), statistics.median(plain_ms)
 
 
@@ -266,9 +340,7 @@ def phosphorus_solve_phase(depth, ypos, device):
                                 newton_max_iter=8)
     x0 = kernel.init_iterate()
 
-    imex_cuda.iage_year_launches = 0
-    imex_cuda.phosphorus_year_launches = 0
-    transport3d_cuda.transport3d_year_launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     x, fcn, info = solver.solve(x0)
@@ -397,9 +469,7 @@ def transport3d_solve_phase(device):
     solver = NewtonKrylovInCore(kernel, **GX3_SOLVER)
     x0 = kernel.init_iterate()
 
-    imex_cuda.iage_year_launches = 0
-    imex_cuda.phosphorus_year_launches = 0
-    transport3d_cuda.transport3d_year_launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     x, fcn, info = solver.solve(x0)
@@ -436,34 +506,193 @@ def transport3d_solve_phase(device):
     return launches
 
 
-def main():
-    # -- 0: device
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    device = compute.resolve_device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    compute.check_no_tf32()
-    phase(0, "device", name=repr(kind), count=torch.cuda.device_count(),
-          torch=torch.__version__, cuda=torch.version.cuda, tf32="off")
-    print(smi, flush=True)
+def stream_bound(year, t_dim, n_cells, n_steps):
+    """bound of one stream year: every operand the kernel reads (all months
+    of a seasonal one) and y0 read once, the year's end written once; the
+    year's operations counted once per cell (est_flops_per_step) and the
+    extra CN half step"""
+    n_bytes = sum(arr.numel() * arr.element_size()
+                  for arr in year.operands.values() if arr is not None)
+    n_bytes += 2 * 4 * t_dim * n_cells
+    n_ops = year.est_flops_per_step * n_steps + t_dim * n_cells * CN_CELL_OPS
+    return bound(n_bytes, n_ops)
 
-    # -- 1: build every kernel from the checkout's sources, all at once
-    start = time.perf_counter()
-    built = imex_cuda.build_libraries()
-    phase(1, "build", seconds=f"{time.perf_counter() - start:.2f}",
-          kernels=len(built))
-    for name, (lib_path, build_s) in built.items():
-        print(f"  {name}: {lib_path.name} nvcc {build_s:.2f} s", flush=True)
-        for line in lib_path.with_suffix(".log").read_text().splitlines():
-            if any(key in line for key in ("registers", "spill", "smem")):
-                print(f"    ptxas: {line.strip()}", flush=True)
 
-    # -- 2: kernel against the plain version at full size
-    depth, ypos = incore_spinup.build_axes(NZ, NY)
+def stream_path_run(year, y0, reps):
+    """(result, median ms, launches) of `reps` synchronised runs after one
+    warm-up: the stream kernel's path, its launch count reset just before
+    and read just after"""
+    reset_counts()
+    timed(year, y0)
+    runs = [timed(year, y0) for _ in range(reps)]
+    launches = transport3d_stream_cuda.transport3d_stream_launches
+    if launches != reps + 1:
+        raise SystemExit(f"chip_smoke: {launches} transport3d_stream launches "
+                         f"for {reps + 1} years")
+    return runs[-1][0], statistics.median(run[1] for run in runs), launches
+
+
+def stream_check(label, y_k, y_ref, scale, tol, wet, **numbers):
+    """phase 8's line for one case; raises unless y_k is finite, within
+    tol * scale of y_ref, and exactly zero on land; returns max|y_k - y_ref|"""
+    err = rel_err(y_k, y_ref, scale)
+    phase(8, label, rel_err=err, tol=tol, **numbers, max_abs_y=scale)
+    if not (torch.isfinite(y_k).all() and err <= tol):
+        raise SystemExit(f"chip_smoke: transport3d_stream disagrees ({label}): "
+                         f"{err:.3e} (bound {tol})")
+    if float((y_k * (1.0 - wet)).abs().max()) != 0.0:
+        raise SystemExit(f"chip_smoke: transport3d_stream wets land ({label})")
+    return float((y_k - y_ref).abs().max())
+
+
+def stream_kernel_phase(device):
+    """phase 8: transport3d_stream against its plain years at gx1, uncut;
+    returns (launches on its path, max abs error, steady kernel ms, plain
+    f32 ms, bound ms, bounded by)"""
+    f32, f64 = torch.float32, torch.float64
+    stream = transport3d_stream_cuda
+    nz, nlat, nlon = GX1
+    n_cells = nz * nlat * nlon
+    span = (0.0, transport3d_cuda.SEC_PER_YEAR)
+    rng = np.random.default_rng(0)
+    noise = rng.uniform(0.0, 1.0, (1,) + GX1)
+    launches, worst_abs = 0, 0.0
+
+    # -- the steady upwind3 year, T = 1, recip_vol factored (bench.py:859-866)
+    circ = synthetic.gen_circulation(*GX1)
+    n_steps = max(GX1_MIN_STEPS, synthetic.stable_steps_per_year(circ))
+    coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
+    wet = torch.as_tensor(circ["mask"] > 0, dtype=f32, device=device)
+    y0 = wet * torch.as_tensor(noise, dtype=f32, device=device)
+    factors = {"recip_area": 1.0 / circ["TAREA"], "recip_dz": 1.0 / circ["dz"]}
+    shed = dict(factors, t_dim=1)
+    year = stream.build_transport3d_year_stream(
+        coef, kv, dz_r, None, None, span, n_steps, **shed, device=device)
+    y_up, ms, count = stream_path_run(year, y0, REPS)
+    launches += count
+    plain = {dtype: stream.build_transport3d_year_stream_plain(
+        _to(coef, device, dtype), kv, dz_r, None, None, span, n_steps,
+        t_dim=1) for dtype in (f32, f64)}
+    y_32, ms_32 = timed(plain[f32], y0)
+    y_64, ms_64 = timed(plain[f64], y0.double())
+    zeros = np.zeros((1, nz, nlat * nlon))
+    year_b4 = transport3d_cuda.build_transport3d_year(
+        coef, kv, dz_r, zeros, zeros, span, n_steps, device=device)
+    y_b4, ms_b4 = kernel_timing_reps(year_b4, y0, GX1_REPS)
+    scale = float(y_64.abs().max())
+    b4_err = rel_err(y_b4, y_32, scale)
+    if not b4_err <= F32_TOL:
+        raise SystemExit(f"chip_smoke: transport3d_year at gx1 disagrees with "
+                         f"the plain year: {b4_err:.3e}")
+    bound_ms, bound_by = stream_bound(year, 1, n_cells, n_steps)
+    steps = f"{nz}x{nlat}x{nlon}, {n_steps} steps"
+    worst_abs = max(worst_abs, stream_check(
+        f"transport3d_stream vs plain f32 (steady upwind3, {steps}, T=1)",
+        y_up, y_32, scale, F32_TOL, wet, rel_err_f64=rel_err(y_up, y_64, scale),
+        kernel_ms_per_year=ms, kernel_ms_per_step=ms / n_steps,
+        plain_f32_ms_per_year=ms_32, plain_f64_ms_per_year=ms_64,
+        b4_ms_per_year=ms_b4, b4_ms_per_step=ms_b4 / n_steps,
+        b4_rel_err_f32=b4_err,
+        cuda_launches_per_year=stream.cuda_launches_per_year(n_steps),
+        b4_cuda_launches_per_year=transport3d_cuda.cuda_launches_per_year(
+            n_steps),
+        hbm_bytes_per_step=year.hbm_bytes_per_step,
+        est_flops_per_step=year.est_flops_per_step, bound_ms=bound_ms,
+        bound_by=bound_by))
+    if not rel_err(y_up, y_64, scale) <= F64_TOL:
+        raise SystemExit("chip_smoke: transport3d_stream disagrees with the "
+                         "plain f64 year")
+    timing = (ms, ms_32, bound_ms, bound_by)
+    del plain, y_64, year_b4
+
+    # -- the stencil years (bench.py:945-980), the four-module family
+    # (bench.py:1226-1236) and the coupled pair: 400 steps against the plain
+    # year, then timed at n_steps
+    def rates(specs):
+        return assemble_rate_fields(specs, (circ["mask"] > 0).reshape(nz, -1),
+                                    float(circ["dz"][0]),
+                                    transport3d_cuda.SEC_PER_YEAR)
+
+    fam_diag, fam_src, _ = rates(GX1_FAMILY_SPECS)
+    abio_diag, abio_src, abio_couple = rates(irf3d_spinup.ABIO_SPECS[0])
+    cases = (
+        ("stencil f32", 1, None, None, None,
+         dict(shed, stencil=True), F32_TOL, STENCIL_VS_UPWIND),
+        ("stencil bf16", 1, None, None, None,
+         dict(shed, stencil=True, coef_bf16=True), BF16_TOL, BF16_VS_UPWIND),
+        ("family T=4", 4, fam_diag, fam_src, None, factors, F32_TOL, F32_TOL),
+        ("coupled ABIO pair", 2, abio_diag, abio_src, abio_couple, factors,
+         F32_TOL, None),
+    )
+    for label, t_dim, diag, src, couple, kwargs, tol, up_tol in cases:
+        y0_t = y0.expand((t_dim,) + GX1).contiguous()
+        args = (kv, dz_r, diag, src, span)
+        year_c = stream.build_transport3d_year_stream(
+            coef, *args, GX1_CHECK_STEPS, couple, **kwargs, device=device)
+        y_c, ms_c = timed(year_c, y0_t)
+        plain_c = stream.build_transport3d_year_stream_plain(
+            _to(coef, device, f64), *args, GX1_CHECK_STEPS, couple, **kwargs,
+            dtype=f32)
+        y_p, ms_p = timed(plain_c, y0_t)
+        numbers = {"kernel_ms_400_steps": ms_c, "plain_f32_ms_400_steps": ms_p}
+        if up_tol is not None:
+            year_t = stream.build_transport3d_year_stream(
+                coef, *args, n_steps, couple, **kwargs, device=device)
+            y_t, ms_t, count = stream_path_run(year_t, y0_t, GX1_REPS)
+            launches += count
+            # the rate-free module (or the one tracer) against upwind3
+            up_err = rel_err(y_t[0], y_up[0], float(y_up.abs().max()))
+            if not up_err <= up_tol:
+                raise SystemExit(f"chip_smoke: {label} at {n_steps} steps is "
+                                 f"{up_err:.3e} from upwind3 (bound {up_tol})")
+            numbers.update(
+                kernel_ms_per_year=ms_t, kernel_ms_per_step=ms_t / n_steps,
+                ms_per_step_per_module=ms_t / n_steps / t_dim,
+                rel_err_vs_upwind3=up_err, upwind3_tol=up_tol,
+                hbm_bytes_per_step=year_t.hbm_bytes_per_step,
+                est_flops_per_step=year_t.est_flops_per_step,
+                bound_ms=stream_bound(year_t, t_dim, n_cells, n_steps)[0])
+            del year_t, y_t
+        worst_abs = max(worst_abs, stream_check(
+            f"transport3d_stream vs plain f32 ({label}, {nz}x{nlat}x{nlon}, "
+            f"{GX1_CHECK_STEPS} steps, T={t_dim})",
+            y_c, y_p, float(y_p.abs().max()), tol, wet, **numbers))
+        del year_c, plain_c, y_c, y_p
+
+    # -- the 12-month seasonal year (bench.py:1305-1331), under its own mask
+    circ_s = synthetic.gen_circulation(*GX1, n_seasons=12)
+    coef_s, kv_s, dz_r_s, _, _, _ = family_year_inputs(circ_s, [[{"name": "T"}]])
+    wet_s = torch.as_tensor(circ_s["mask"] > 0, dtype=f32, device=device)
+    y0_s = wet_s * torch.as_tensor(noise, dtype=f32, device=device)
+    shed_s = {"recip_area": 1.0 / circ_s["TAREA"],
+              "recip_dz": 1.0 / circ_s["dz"], "t_dim": 1}
+    n_steps_s = max(GX1_MIN_STEPS, synthetic.stable_steps_per_year(circ_s))
+    args = (kv_s, dz_r_s, None, None, span)
+    year_c = stream.build_transport3d_year_stream(
+        coef_s, *args, GX1_CHECK_STEPS, **shed_s, device=device)
+    y_c, ms_c = timed(year_c, y0_s)
+    y_p, ms_p = timed(stream.build_transport3d_year_stream_plain(
+        _to(coef_s, device, f32), *args, GX1_CHECK_STEPS, **shed_s), y0_s)
+    year_t = stream.build_transport3d_year_stream(
+        coef_s, *args, n_steps_s, **shed_s, device=device)
+    _, ms_t, count = stream_path_run(year_t, y0_s, GX1_REPS)
+    launches += count
+    worst_abs = max(worst_abs, stream_check(
+        f"transport3d_stream vs plain f32 (seasonal 12 months, {nz}x{nlat}x"
+        f"{nlon}, {GX1_CHECK_STEPS} steps, T=1)",
+        y_c, y_p, float(y_p.abs().max()), F32_TOL, wet_s,
+        kernel_ms_400_steps=ms_c, plain_f32_ms_400_steps=ms_p,
+        kernel_ms_per_year=ms_t, kernel_ms_per_step=ms_t / n_steps_s,
+        hbm_bytes_per_step=year_t.hbm_bytes_per_step,
+        est_flops_per_step=year_t.est_flops_per_step,
+        bound_ms=stream_bound(year_t, 1, n_cells, n_steps_s)[0]))
+    phase(8, "transport3d_stream path", launches=launches)
+    return (launches, worst_abs, *timing)
+
+
+def iage_kernel_phase(depth, ypos, device):
+    """phase 2: iage_year against its plain version at full size; returns
+    (max abs error, kernel ms, plain f32 ms) over the two routes"""
     grids = {
         dtype: physics.make_grid(depth, ypos, incore_spinup.MODELINFO,
                                  device=device, dtype=dtype)
@@ -481,35 +710,49 @@ def main():
     }
     worst_abs, kernel_ms, plain_ms = 0.0, [], []
     for route, (source, y0_np) in inputs.items():
-        year_k = imex_cuda.build_iage_year(grids[torch.float32], diag, source,
-                                           span, N_STEPS, device=device)
+        args = {dtype: (grids[dtype], diag, source, span, N_STEPS)
+                for dtype in (torch.float32, torch.float64)}
+        year_k = imex_cuda.build_iage_year(*args[torch.float32], device=device)
         y0 = torch.as_tensor(y0_np, dtype=torch.float32, device=device)
         y_k, ms = kernel_timing(year_k, y0)
-        y_32, ms_32 = timed(
-            imex_cuda.build_iage_year_plain(grids[torch.float32], diag, source,
-                                            span, N_STEPS), y0)
-        y_64, _ = timed(
-            imex_cuda.build_iage_year_plain(grids[torch.float64], diag, source,
-                                            span, N_STEPS), y0.double())
-        scale = float(y_64.abs().max())
-        err_32, err_64 = rel_err(y_k, y_32, scale), rel_err(y_k, y_64, scale)
+        y_s = imex_cuda.build_iage_year(*tenth(args[torch.float32]),
+                                        device=device)(y0)
+        y_64, _ = timed(imex_cuda.build_iage_year_plain(
+            *tenth(args[torch.float64])), y0.double())
+        err_64 = rel_err(y_s, y_64, float(y_64.abs().max()))
+        numbers = {}
+        if route == "F":
+            # the full year against the plain f32 year, timed
+            ref, ms_32 = timed(imex_cuda.build_iage_year_plain(
+                *args[torch.float32]), y0)
+            kernel_y = y_k
+            numbers["plain_f32_ms_per_year"] = ms_32
+            plain_ms.append(ms_32)
+        else:
+            ref, _ = timed(imex_cuda.build_iage_year_plain(
+                *tenth(args[torch.float32])), y0)
+            kernel_y = y_s
+        scale = float(ref.abs().max())
+        err_32 = rel_err(kernel_y, ref, scale)
         phase(2, f"kernel vs plain ({route})", rel_err_f32=err_32,
-              rel_err_f64=err_64, kernel_ms_per_year=ms,
-              plain_f32_ms_per_year=ms_32, max_abs_y=scale)
+              compared_steps=N_STEPS if route == "F" else CHECK_STEPS,
+              rel_err_f64_tenth=err_64, kernel_ms_per_year=ms, **numbers,
+              max_abs_y=scale)
         if not (err_32 <= F32_TOL and err_64 <= F64_TOL):
             raise SystemExit(
                 f"chip_smoke: kernel disagrees with the plain year ({route}): "
                 f"{err_32:.3e} vs f32 (bound {F32_TOL}), "
                 f"{err_64:.3e} vs f64 (bound {F64_TOL})"
             )
-        worst_abs = max(worst_abs, float((y_k - y_32).abs().max()))
+        worst_abs = max(worst_abs, float((kernel_y - ref).abs().max()))
         kernel_ms.append(ms)
-        plain_ms.append(ms_32)
+    return worst_abs, statistics.median(kernel_ms), statistics.median(plain_ms)
 
-    # -- 3: the solve through the CLI entry point, counting kernel launches
-    imex_cuda.iage_year_launches = 0
-    imex_cuda.phosphorus_year_launches = 0
-    transport3d_cuda.transport3d_year_launches = 0
+
+def iage_solve_phase(depth, ypos, device):
+    """phase 3: the iage solve through the CLI entry point; returns the
+    kernel's launches"""
+    reset_counts()
     kernel, x, fcn, info = incore_spinup.main([
         str(NZ), str(NY), str(N_STEPS), "--device", "cuda",
         "--newton-rel-tol", str(SOLVE_TOL),
@@ -541,16 +784,76 @@ def main():
           kernel_launches=launches, max_ideal_age_years=float(x.max()))
     if not rel64 < 1e-4:
         raise SystemExit(f"chip_smoke: f64 residual at the solution {rel64:.3e}")
+    return launches
 
-    # -- 4, 5: the phosphorus kernel, then the phosphorus spin-up
-    phos_abs, phos_ms, phos_plain_ms = phosphorus_kernel_phase(depth, ypos,
-                                                               device)
-    phos_launches = phosphorus_solve_phase(depth, ypos, device)
 
-    # -- 6, 7: the 3D transport kernel, then the gx3 spin-up
-    t3d_abs, t3d_ms, t3d_plain_ms, t3d_bound, t3d_by = (
-        transport3d_kernel_phase(device))
-    t3d_launches = transport3d_solve_phase(device)
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="drive the port's paths through its CUDA kernels on one card")
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(9),
+                        default=list(range(9)),
+                        help="phases to run (0 and 1 always run); the JSON "
+                             "lines need them all")
+    phases = set(parser.parse_args(argv).phases) | {0, 1}
+    # -- 0: device
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    device = compute.resolve_device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    compute.check_no_tf32()
+    phase(0, "device", name=repr(kind), count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda, tf32="off")
+    print(smi, flush=True)
+
+    # -- 1: build every kernel from the checkout's sources, all at once
+    start = time.perf_counter()
+    built = imex_cuda.build_libraries()
+    phase(1, "build", seconds=f"{time.perf_counter() - start:.2f}",
+          kernels=len(built))
+    for name, (lib_path, build_s) in built.items():
+        print(f"  {name}: {lib_path.name} nvcc {build_s:.2f} s", flush=True)
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if any(key in line for key in ("registers", "spill", "smem")):
+                print(f"    ptxas: {line.strip()}", flush=True)
+
+    depth, ypos = incore_spinup.build_axes(NZ, NY)
+    runs = {
+        # 2, 3: the iage kernel, then the iage spin-up
+        2: lambda: iage_kernel_phase(depth, ypos, device),
+        3: lambda: iage_solve_phase(depth, ypos, device),
+        # 4, 5: the phosphorus kernel, then the phosphorus spin-up
+        4: lambda: phosphorus_kernel_phase(depth, ypos, device),
+        5: lambda: phosphorus_solve_phase(depth, ypos, device),
+        # 6, 7: the 3D transport kernel, then the gx3 spin-up
+        6: lambda: transport3d_kernel_phase(device),
+        7: lambda: transport3d_solve_phase(device),
+        # 8: the streaming 3D year at gx1
+        8: lambda: stream_kernel_phase(device),
+    }
+    results, seconds = {}, {}
+    for num, run in runs.items():
+        if num in phases:
+            start = time.perf_counter()
+            results[num] = run()
+            seconds[num] = round(time.perf_counter() - start, 1)
+    print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
+    if phases != set(range(9)):
+        print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
+              "need every phase", flush=True)
+        return 0
+
+    worst_abs, iage_ms, iage_plain_ms = results[2]
+    launches = results[3]
+    phos_abs, phos_ms, phos_plain_ms = results[4]
+    phos_launches = results[5]
+    t3d_abs, t3d_ms, t3d_plain_ms, t3d_bound, t3d_by = results[6]
+    t3d_launches = results[7]
+    (stream_launches, stream_abs, stream_ms, stream_plain_ms, stream_bound_ms,
+     stream_by) = results[8]
 
     # no single PyTorch call computes an IMEX year: library_ms is null
     iage_bound_ms, iage_by = iage_bound(2, NZ, NY, N_STEPS)
@@ -562,8 +865,8 @@ def main():
         "replaces": "newton_krylov_ooc_tpu/ops/imex_pallas.py:267",
         "launches": launches,
         "max_abs_err": worst_abs,
-        "ms": statistics.median(kernel_ms),
-        "plain_ms": statistics.median(plain_ms),
+        "ms": iage_ms,
+        "plain_ms": iage_plain_ms,
         "bound_ms": iage_bound_ms,
         "bound_by": iage_by,
         "library_ms": None,
@@ -591,10 +894,23 @@ def main():
         "bound_ms": t3d_bound,
         "bound_by": t3d_by,
         "library_ms": None,
+    }, {
+        "name": "transport3d_stream",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/transport3d_stream.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/transport3d_stream_pallas.py:805",
+        "launches": stream_launches,
+        "max_abs_err": stream_abs,
+        "ms": stream_ms,
+        "plain_ms": stream_plain_ms,
+        "bound_ms": stream_bound_ms,
+        "bound_by": stream_by,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""where the time of the 3D spin-up goes on the card, by torch.profiler.
+"""where the time of the 3D years goes on the card, by torch.profiler.
 
 Runs the JAX bench's gx3 spin-up (cli/irf3d_spinup.py's GX3 settings:
 60 x 116 x 100, two modules, float32, kernel B4) on one CUDA card and
@@ -8,8 +8,12 @@ prints, as JSON lines:
   * over a whole solve (the second in the process): the wall time, the
     device's busy time (the sum of every kernel's and copy's device time)
     and its idle share.
+With --gx1 it profiles instead one year at the bench's gx1 settings
+(60 x 384 x 320, 2000 steps, one tracer, no rates) of the stream kernel B5
+in each mode (upwind3, stencil, stencil in bf16) and of B4 on the same
+inputs, each after a warm-up year: the same per-kernel lines, by mode.
 
-    python -m newton_krylov_ooc_tpu_torch.cli.profile_irf3d
+    python -m newton_krylov_ooc_tpu_torch.cli.profile_irf3d [--gx1]
 
 Needs a CUDA card; the profiler's trace of ~90,000 launches adds host
 time to the profiled solve, so its wall time is not the solve's own.
@@ -17,9 +21,12 @@ time to the profiled solve, so its wall time is not the solve's own.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
+
+import numpy as np
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -27,7 +34,12 @@ from torch.profiler import ProfilerActivity, profile
 from ..core.incore import NewtonKrylovInCore
 from ..models.irf_offline import synthetic
 from ..ops.compute import resolve_device
-from ..parallel.sharded_transport3d import ShardedTransport3dKernel
+from ..ops.transport3d_cuda import SEC_PER_YEAR, build_transport3d_year
+from ..ops.transport3d_stream_cuda import build_transport3d_year_stream
+from ..parallel.sharded_transport3d import (
+    ShardedTransport3dKernel,
+    family_year_inputs,
+)
 from .irf3d_spinup import GX3, GX3_MIN_STEPS, GX3_SOLVER, GX3_SPECS
 
 
@@ -40,12 +52,62 @@ def _device_events(prof):
     ]
 
 
-def main():
+GX1 = (60, 384, 320)
+GX1_MIN_STEPS = 2000
+
+
+def profile_year(label, year, y0, card):
+    """one JSON line per CUDA kernel of one year, after a warm-up year"""
+    year(y0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        year(y0)
+        torch.cuda.synchronize()
+    for name, count, micros in sorted(_device_events(prof), key=lambda e: -e[2]):
+        print(json.dumps({"year": label, "kernel": name, "launches": count,
+                          "total_ms": micros / 1e3,
+                          "mean_us": micros / max(count, 1), "card": card}),
+              flush=True)
+
+
+def profile_gx1(device, card):
+    """B5 in each mode and B4, one gx1 year each (bench.py:859-866)"""
+    circ = synthetic.gen_circulation(*GX1)
+    n_steps = max(GX1_MIN_STEPS, synthetic.stable_steps_per_year(circ))
+    coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
+    span = (0.0, SEC_PER_YEAR)
+    wet = torch.as_tensor(circ["mask"] > 0, dtype=torch.float32, device=device)
+    y0 = wet * torch.as_tensor(np.random.default_rng(0).uniform(
+        0.0, 1.0, (1,) + GX1), dtype=torch.float32, device=device)
+    shed = {"recip_area": 1.0 / circ["TAREA"], "recip_dz": 1.0 / circ["dz"],
+            "t_dim": 1}
+    for label, kwargs in (("B5 upwind3", {}), ("B5 stencil", {"stencil": True}),
+                          ("B5 stencil bf16",
+                           {"stencil": True, "coef_bf16": True})):
+        year = build_transport3d_year_stream(coef, kv, dz_r, None, None, span,
+                                             n_steps, **shed, **kwargs,
+                                             device=device)
+        profile_year(label, year, y0, card)
+        del year
+    zeros = np.zeros((1, GX1[0], GX1[1] * GX1[2]))
+    profile_year("B4", build_transport3d_year(coef, kv, dz_r, zeros, zeros,
+                                              span, n_steps, device=device),
+                 y0, card)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--gx1", action="store_true",
+                        help="profile the gx1 stream years instead of gx3")
+    args = parser.parse_args(argv)
     device = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+    if args.gx1:
+        profile_gx1(device, card)
+        return
     circ = synthetic.gen_circulation(*GX3)
     n_steps = max(GX3_MIN_STEPS, synthetic.stable_steps_per_year(circ))
     kernel = ShardedTransport3dKernel(circ, GX3_SPECS, n_steps, device=device,

@@ -37,7 +37,9 @@
 //       column's f1/f2 entries, already consumed.  Column-local work needs
 //       no grid-wide barrier, so the Heun add and the CN solve share a pass.
 // The first and last CN half steps are column_kernel<false> (no Heun add)
-// with h = dt/2.  The year's loop over steps is a plain C loop on the host
+// with h = dt/2.  The face values, the Kahan add and the CN column solve
+// live in csrc/transport3d_common.cuh, shared with the streaming kernel
+// B5.  The year's loop over steps is a plain C loop on the host
 // that enqueues every launch on PyTorch's current stream: one call from
 // Python enqueues 3 n + 1 launches, and their host cost overlaps the device
 // work.  Each launch's cudaGetLastError() is checked.
@@ -56,10 +58,14 @@
 
 #include <cuda_runtime.h>
 
+#include "transport3d_common.cuh"
+
 namespace {
 
+using t3d::Sample;
+using t3d::face_flux;
+
 constexpr int kThreads = 256;
-constexpr float kSixth = 1.0f / 6.0f;
 
 // operand slots, in the order the wrapper packs their pointers
 // (ops/transport3d_cuda.py::_SLOTS); an absent face field is nullptr
@@ -79,12 +85,6 @@ enum Slot {
   kSlots
 };
 
-// the months (m0, m1) around one time sample and the weight w of m1
-struct Sample {
-  int m0, m1;
-  float w;
-};
-
 struct Args {
   const float* f[kSlots];
   int seasonal[kSlots];  // 1 where the operand carries a month axis
@@ -96,34 +96,14 @@ struct Args {
 // seasonal operand (stride: the size of one month); 0 where absent
 __device__ inline float coef_at(const Args& a, int slot, long idx, long stride,
                                 const Sample& s) {
-  const float* p = a.f[slot];
-  if (p == nullptr) return 0.0f;
-  if (!a.seasonal[slot]) return __ldg(p + idx);
-  return (1.0f - s.w) * __ldg(p + s.m0 * stride + idx) +
-         s.w * __ldg(p + s.m1 * stride + idx);
-}
-
-// advective face value for transport `trans` from cell `up` toward `dn`;
-// uu and dd are the far cells, selp and seln their wet selectors
-__device__ inline float face_value(float trans, float up, float dn, float uu,
-                                   float dd, float selp, float seln,
-                                   int upwind3) {
-  if (!upwind3) return 0.5f * (up + dn);
-  float v_pos = selp * kSixth * (-uu + 5.0f * up + 2.0f * dn) + (1.0f - selp) * up;
-  float v_neg = seln * kSixth * (2.0f * up + 5.0f * dn - dd) + (1.0f - seln) * dn;
-  return trans > 0.0f ? v_pos : v_neg;
-}
-
-// advective plus diffusive flux across one face
-__device__ inline float face_flux(float trans, float cond, float up, float dn,
-                                  float uu, float dd, float selp, float seln,
-                                  int upwind3) {
-  return trans * face_value(trans, up, dn, uu, dd, selp, seln, upwind3) +
-         cond * (up - dn);
+  return t3d::coef_at(a.f[slot], a.seasonal[slot], idx, stride, s);
 }
 
 // f = tend(y) (stage 1) or tend(y + dt f1) (stage 2) + src + couple, at the
-// time sample s; one thread per (tracer, k, j, i)
+// time sample s; one thread per (tracer, k, j, i).  The flux divergence is
+// written out here with the neighbours' periodic columns wrapped once per
+// cell: t3d::flux_divergence's accessor form, which B5 uses, measured 2.6%
+// slower a step in this pass.
 template <bool kStage2>
 __global__ void __launch_bounds__(kThreads)
     tend_kernel(const float* __restrict__ y, const float* __restrict__ f1,
@@ -227,20 +207,10 @@ __global__ void __launch_bounds__(kThreads)
   out[gid] = f;
 }
 
-// one Kahan-compensated add of delta into y[idx]; returns the new y
-__device__ inline float kahan_add(float* y, float* comp, long idx, float delta) {
-  float adj = delta + comp[idx];
-  float y_old = y[idx];
-  float y_new = y_old + adj;
-  comp[idx] = adj - (y_new - y_old);
-  y[idx] = y_new;
-  return y_new;
-}
-
 // per (tracer, column): kHeun -- the Heun add y += half_dt (f1 + f2) --
-// then the CN increment over h at the time sample s, Kahan-added: solve
-// (I - h/2 M) dv = h M y along depth with M = Lz(kv) + diag (Thomas).
-// f1 and f2 take the sweep factors once each level's Heun add is done.
+// then the CN increment over h at the time sample s, Kahan-added (the
+// shared t3d::cn_column).  f1 and f2 take the sweep factors once each
+// level's Heun add is done.
 template <bool kHeun>
 __global__ void __launch_bounds__(kThreads)
     column_kernel(float* y, float* comp, float* f1, float* f2, Args a, float h,
@@ -253,50 +223,19 @@ __global__ void __launch_bounds__(kThreads)
   const long col = gid - t * nh;
   const long base = t * nz * nh + col;  // level k of this column: base + k nh
   const long kv_stride = (long)(nz - 1) * nh;
-  const float* dz_r = a.f[kDzR];
   const float* diag = a.f[kDiag];
-  const float half = 0.5f * h;
 
   auto level = [&](long idx) -> float {
-    if (kHeun) return kahan_add(y, comp, idx, half_dt * (f1[idx] + f2[idx]));
+    if (kHeun)
+      return t3d::kahan_add(y, comp, idx, half_dt * (f1[idx] + f2[idx]));
     return y[idx];
   };
-
-  float yk = level(base);
-  float cp_prev = 0.0f, gp_prev = 0.0f, kv_lo = 0.0f, flux_up = 0.0f;
-  for (int k = 0; k < nz; ++k) {
-    const long idx = base + k * nh;
-    const float dzr = __ldg(dz_r + k);
-    float kv_up = 0.0f, y_dn = 0.0f, flux_dn = 0.0f;
-    if (k < nz - 1) {
-      kv_up = coef_at(a, kKv, k * nh + col, kv_stride, s);
-      y_dn = level(idx + nh);
-      flux_dn = kv_up * (y_dn - yk);
-    }
-    const float du = kv_up * dzr;  // coupling to the level below
-    const float dl = kv_lo * dzr;  // coupling to the level above
-    const float d = __ldg(diag + idx);
-    const float dmain = -(du + dl) + d;
-    const float rhs = h * (dzr * (flux_dn - flux_up) + d * yk);
-    const float lo = -half * dl;
-    const float b = 1.0f - half * dmain;
-    const float up = -half * du;
-    const float denom = b - lo * cp_prev;
-    cp_prev = up / denom;
-    gp_prev = (rhs - lo * gp_prev) / denom;
-    f1[idx] = cp_prev;
-    f2[idx] = gp_prev;
-    kv_lo = kv_up;
-    flux_up = flux_dn;
-    yk = y_dn;
-  }
-  float x_next = 0.0f;
-  for (int k = nz - 1; k >= 0; --k) {
-    const long idx = base + k * nh;
-    const float x = f2[idx] - f1[idx] * x_next;
-    kahan_add(y, comp, idx, x);
-    x_next = x;
-  }
+  auto kv_up = [&](int k) -> float {
+    return coef_at(a, kKv, k * nh + col, kv_stride, s);
+  };
+  auto diag_at = [&](int, long idx) -> float { return __ldg(diag + idx); };
+  t3d::cn_column(y, comp, f1, f2, base, nh, nz, a.f[kDzR], h, level, kv_up,
+                 diag_at);
 }
 
 }  // namespace

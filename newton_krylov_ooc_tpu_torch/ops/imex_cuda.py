@@ -27,8 +27,9 @@ tensor it launches its kernel or raises.  Each kernel source is compiled
 with nvcc at first use into <repo>/build/torch_kernels/, keyed on a hash of
 its sources and flags, into a shared library with a plain C interface that
 ctypes loads.  The build knows every kernel source of the port (SOURCES),
-the 3D transport year of ops/transport3d_cuda.py included, so one
-build_libraries() call compiles them all at once.
+the 3D transport years of ops/transport3d_cuda.py and
+ops/transport3d_stream_cuda.py included, so one build_libraries() call
+compiles them all at once.
 """
 
 from __future__ import annotations
@@ -54,11 +55,13 @@ SOURCES = {
     "iage_year": "iage_year.cu",
     "phosphorus_year": "phosphorus_year.cu",
     "transport3d_year": "transport3d_year.cu",
+    "transport3d_stream": "transport3d_stream.cu",
 }
 INCLUDES = {
     "iage_year": ("imex_common.cuh",),
     "phosphorus_year": ("imex_common.cuh",),
-    "transport3d_year": (),
+    "transport3d_year": ("transport3d_common.cuh",),
+    "transport3d_stream": ("transport3d_common.cuh",),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

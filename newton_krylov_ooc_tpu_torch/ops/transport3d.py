@@ -27,8 +27,9 @@ has the JAX keys; a coefficient that is absent stays None.  `jnp.roll` is
 `torch.roll`; `_shift` zero-fills off-grid.  The set-up functions
 (build_transport3d, vmix_vertical_coeff, mask_vmix_coeff,
 assemble_rate_fields) take numpy inputs and compute in float64 before the
-cast, as the JAX ones do.  The stencil mode (transport_stencil_coef,
-stencil_tend) belongs with kernel B5 and is not ported yet.
+cast, as the JAX ones do.  transport_stencil_coef collapses a steady
+operator into the 13 per-offset fields that stencil_tend applies (the
+stencil mode of kernel B5, ops/transport3d_stream_cuda.py).
 """
 
 from __future__ import annotations
@@ -404,6 +405,132 @@ def transport_tridiag_bands(coef):
 
     rv = coef["recip_vol"]
     return lo * rv, diag * rv, up * rv
+
+
+# the explicit transport stencil reaches two cells per direction (upwind3
+# far cells); the streaming kernel sizes its halos from this
+STENCIL_RADIUS = 2
+
+# offsets (dz, dlat, dlon) of the 13-point transport stencil, centre first;
+# result[i] = sum_o c_o[i] * y[i + o] with lon periodic and lat/depth
+# zero-filled off-grid.  The order is the contract between
+# transport_stencil_coef, stencil_tend and csrc/transport3d_stream.cu.
+STENCIL_OFFSETS = (
+    (0, 0, 0),
+    (0, 0, 1), (0, 0, -1), (0, 0, 2), (0, 0, -2),
+    (0, 1, 0), (0, -1, 0), (0, 2, 0), (0, -2, 0),
+    (1, 0, 0), (-1, 0, 0), (2, 0, 0), (-2, 0, 0),
+)
+
+
+def transport_stencil_coef(coef):
+    """collapse a STEADY transport_tend operator to 13 stencil fields.
+
+    transport_tend is linear in y with static coefficients (the upwind
+    selection depends only on the sign of the steady face transports), so
+    the operator is c[o][i] = d tend[i] / d y[i+o] over STENCIL_OFFSETS:
+    per face the _face_derivs partials times the face transport (plus the
+    diffusive conductance on the near pair), gathered onto the two cells
+    each face feeds, scaled by recip_vol, and carrying the source cell's
+    wet factor (transport_tend masks y by wet before differencing).
+
+    Returns (13, nz, nlat, nlon) in STENCIL_OFFSETS order, in the
+    coefficients' dtype.  stencil_tend with it reproduces transport_tend to
+    reassociation roundoff, not bitwise.
+    """
+    up3 = coef.get("sel3p_e") is not None
+    wet = coef["wet"]
+    zeros = torch.zeros_like(wet)
+    c = {off: zeros for off in STENCIL_OFFSETS}
+
+    def face_terms(t_key, cond_key, selp_key, seln_key):
+        """(f_up, f_dn, f_uu, f_dd): d flux / d (near-up, near-dn,
+        far-up, far-dn) for one face direction"""
+        t = coef.get(t_key)
+        cond = coef.get(cond_key) if cond_key else None
+        f_up = f_dn = f_uu = f_dd = zeros
+        if t is not None:
+            d_up, d_dn, d_uu, d_dd = _face_derivs(
+                t, coef.get(selp_key), coef.get(seln_key), up3
+            )
+            f_up, f_dn, f_uu, f_dd = t * d_up, t * d_dn, t * d_uu, t * d_dd
+        if cond is not None:
+            f_up = f_up + cond
+            f_dn = f_dn - cond
+        return f_up, f_dn, f_uu, f_dd
+
+    # east faces: flux[i] feeds cells i (out) and i+1 (in, periodic);
+    # tend[i] = flux[i-1] - flux[i], gathered through a +1 roll
+    if coef.get("t_e") is not None or coef.get("cond_e") is not None:
+        f_up, f_dn, f_uu, f_dd = face_terms("t_e", "cond_e", "sel3p_e",
+                                            "sel3n_e")
+
+        def r1(arr):
+            return torch.roll(arr, 1, dims=-1)
+
+        c[(0, 0, 0)] = c[(0, 0, 0)] + r1(f_dn) - f_up
+        c[(0, 0, 1)] = c[(0, 0, 1)] + r1(f_dd) - f_dn
+        c[(0, 0, -1)] = c[(0, 0, -1)] + r1(f_up) - f_uu
+        c[(0, 0, -2)] = c[(0, 0, -2)] + r1(f_uu)
+        c[(0, 0, 2)] = c[(0, 0, 2)] - f_dd
+
+    # north faces: the same along lat with zero-filled shifts
+    if coef.get("t_n") is not None or coef.get("cond_n") is not None:
+        f_up, f_dn, f_uu, f_dd = face_terms("t_n", "cond_n", "sel3p_n",
+                                            "sel3n_n")
+
+        def s1(arr):
+            return _shift(arr, -1, -2)  # value at j-1
+
+        c[(0, 0, 0)] = c[(0, 0, 0)] + s1(f_dn) - f_up
+        c[(0, 1, 0)] = c[(0, 1, 0)] + s1(f_dd) - f_dn
+        c[(0, -1, 0)] = c[(0, -1, 0)] + s1(f_up) - f_uu
+        c[(0, -2, 0)] = c[(0, -2, 0)] + s1(f_uu)
+        c[(0, 2, 0)] = c[(0, 2, 0)] - f_dd
+
+    # top faces: face k couples y_up=y[k], y_dn=y[k-1], y_uu=y[k+1],
+    # y_dd=y[k-2]; tend[k] = flux[k+1] - flux[k]
+    if coef.get("t_t") is not None:
+        f_up, f_dn, f_uu, f_dd = face_terms("t_t", None, "sel3p_t", "sel3n_t")
+
+        def s1(arr):
+            return _shift(arr, 1, -3)  # value at k+1
+
+        c[(0, 0, 0)] = c[(0, 0, 0)] + s1(f_dn) - f_up
+        c[(1, 0, 0)] = c[(1, 0, 0)] + s1(f_up) - f_uu
+        c[(-1, 0, 0)] = c[(-1, 0, 0)] + s1(f_dd) - f_dn
+        c[(2, 0, 0)] = c[(2, 0, 0)] + s1(f_uu)
+        c[(-2, 0, 0)] = c[(-2, 0, 0)] - f_dd
+
+    rv = coef["recip_vol"]
+    return torch.stack([rv * c[off] * _offset(wet, off)
+                        for off in STENCIL_OFFSETS])
+
+
+def _offset(arr, off):
+    """result[..., i] = arr[..., i + off]: lon periodic, lat and depth
+    zero-filled off-grid"""
+    dz_, dy_, dx_ = off
+    if dx_:
+        arr = torch.roll(arr, -dx_, dims=-1)
+    if dy_:
+        arr = _shift(arr, dy_, -2)
+    if dz_:
+        arr = _shift(arr, dz_, -3)
+    return arr
+
+
+def stencil_tend(st, y):
+    """apply a transport_stencil_coef operator: 13 multiply-adds per cell,
+    the centre first, then the offsets in STENCIL_OFFSETS order.
+
+    st: (13, nz, nlat, nlon) (or any sequence of 13 per-offset fields that
+    broadcast against y); y: (..., nz, nlat, nlon).  Exactly zero on land
+    (every c_o carries recip_vol's wet factor)."""
+    acc = st[0] * y
+    for ind, off in enumerate(STENCIL_OFFSETS[1:], 1):
+        acc = acc + st[ind] * _offset(y, off)
+    return acc
 
 
 def vmix_vertical_coeff(vdc, dz, *, device, dtype):

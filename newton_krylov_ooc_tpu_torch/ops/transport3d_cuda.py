@@ -15,7 +15,9 @@ package's parallel/sharded_transport3d.py::build_sharded_transport3d_year
 without the halo exchange: ops/imex.py::imex_year over
 ops/transport3d.py::transport_tend + src, the coupling term added at the
 surface, and seasonal coefficients and kv interpolated at the time of year
-of each stage.  It works in the coefficients' dtype on their device.
+of each stage.  It works in the coefficients' dtype on their device.  Given
+the 13 fields of transport_stencil_coef, it applies stencil_tend instead
+(the stencil mode of ops/transport3d_stream_cuda.py).
 
 The wrapper takes the plain version only on the CPU; for a CUDA tensor it
 launches the kernel or raises.  The kernel source is built with the
@@ -36,6 +38,7 @@ from .transport3d import (
     interp_month,
     interp_transport_coef,
     month_bracket,
+    stencil_tend,
     transport_coef_n_time,
     transport_tend,
 )
@@ -57,10 +60,10 @@ def cuda_launches_per_year(n_steps):
     return 1 + 3 * int(n_steps)
 
 
-def year_frac(t):
-    """fraction of the calendar year at time t (a tensor), by true division
-    on t's device"""
-    return torch.remainder(t / torch.full_like(t, SEC_PER_YEAR), 1.0)
+def year_frac(t, period=SEC_PER_YEAR):
+    """fraction of the period (by default the calendar year) at time t (a
+    tensor), by true division on t's device"""
+    return torch.remainder(t / torch.full_like(t, period), 1.0)
 
 
 def _season(coef, kv):
@@ -103,7 +106,8 @@ def _couple(couple, t_dim, dtype, device):
 
 
 def build_transport3d_year_plain(coef, kv, dz_r, diag, src, t_span, n_steps,
-                                 couple=None):
+                                 couple=None, period=SEC_PER_YEAR, *,
+                                 stencil=None):
     """year(y0: (T, nz, nlat, nlon)) -> y(t_end) over ops/imex.py::imex_year,
     in the coefficients' dtype and on their device
 
@@ -114,6 +118,9 @@ def build_transport3d_year_plain(coef, kv, dz_r, diag, src, t_span, n_steps,
         (n_time, nz-1, nlat*nlon); dz_r: (nz,)
     diag, src: (T, nz, nlat*nlon) implicit local rates and explicit sources
     couple: optional (T, T) surface gas-exchange coupling [1/s]
+    period: the seasonal cycle's length [s] (the months span it)
+    stencil: optional (13, nz, nlat, nlon) transport_stencil_coef fields of
+        a steady circulation; the tendency is then stencil_tend of them
     """
     wet = coef["wet"]
     dtype, device = wet.dtype, wet.device
@@ -128,10 +135,16 @@ def build_transport3d_year_plain(coef, kv, dz_r, diag, src, t_span, n_steps,
     diag, src = _rates(diag, src, t_dim, nz, nh, dtype, device)
     couple = _couple(couple, t_dim, dtype, device)
     wet_surf = wet[0].reshape(-1)
+    if stencil is not None:
+        stencil = stencil.to(device=device, dtype=dtype)
 
     def explicit_tend(t, y):
-        c_t = interp_transport_coef(coef, year_frac(t))
-        tend = transport_tend(c_t, y.reshape(t_dim, nz, nlat, nlon))
+        y4 = y.reshape(t_dim, nz, nlat, nlon)
+        if stencil is None:
+            c_t = interp_transport_coef(coef, year_frac(t, period))
+            tend = transport_tend(c_t, y4)
+        else:
+            tend = stencil_tend(stencil, y4)
         tend = tend.reshape(y.shape) + src
         if couple is not None:
             tend[:, 0, :] += wet_surf * (couple @ y[:, 0, :])
@@ -139,7 +152,7 @@ def build_transport3d_year_plain(coef, kv, dz_r, diag, src, t_span, n_steps,
 
     if kv.ndim == 3:
         def vert_coeff(t):
-            return interp_month(kv, year_frac(t))
+            return interp_month(kv, year_frac(t, period))
     else:
         def vert_coeff(t):
             return kv
@@ -153,14 +166,15 @@ def build_transport3d_year_plain(coef, kv, dz_r, diag, src, t_span, n_steps,
     return year
 
 
-def season_samples(t_span, n_steps, n_time):
+def season_samples(t_span, n_steps, n_time, period=SEC_PER_YEAR):
     """(m0, m1, w) of every time sample of a float32 year, as numpy int32,
     int32 and float32 arrays of length 2 n_steps + 1: sample 0 is t0 (the
     first CN half step); step i's are t_i = t0 + i dt (Heun stage 1) and
     t_i + dt (Heun stage 2 and the CN step after it).  The arithmetic is
     the plain year's (ops/imex.py::imex_year's times, year_frac,
     month_bracket) in float32 on the CPU, so kernel and plain year sample
-    the same months with the same weights."""
+    the same months with the same weights.  period: the seasonal cycle's
+    length [s]."""
     if n_time is None:
         count = 2 * int(n_steps) + 1
         return (np.zeros(count, np.int32), np.zeros(count, np.int32),
@@ -170,7 +184,7 @@ def season_samples(t_span, n_steps, n_time):
     dt = torch.tensor((t_span[1] - t_span[0]) / n_steps, dtype=f32)
     t_a = t0 + torch.arange(n_steps, dtype=f32) * dt
     times = torch.cat([t0.reshape(1), torch.stack([t_a, t_a + dt], 1).reshape(-1)])
-    m0, m1, w1 = month_bracket(year_frac(times), n_time)
+    m0, m1, w1 = month_bracket(year_frac(times, period), n_time)
     return (m0.numpy().astype(np.int32), m1.numpy().astype(np.int32),
             w1.numpy().astype(np.float32))
 

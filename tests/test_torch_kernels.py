@@ -1,6 +1,7 @@
 """the CUDA year kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu,
-csrc/transport3d_year.cu) against their plain PyTorch versions; need an
-NVIDIA Hopper card and nvcc, and skip without a card
+csrc/transport3d_year.cu, csrc/transport3d_stream.cu) against their plain
+PyTorch versions; need an NVIDIA Hopper card and nvcc, and skip without a
+card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
 """
@@ -17,7 +18,12 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     SURF_SLOW_FACTOR,
     surf_restore_rate,
 )
-from newton_krylov_ooc_tpu_torch.ops import imex_cuda, transport3d_cuda
+from newton_krylov_ooc_tpu_torch.ops import (
+    imex_cuda,
+    transport3d_cuda,
+    transport3d_stream_cuda,
+)
+from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
     family_year_inputs,
@@ -191,3 +197,102 @@ def test_transport3d_kernel_runs_the_cuda_year(cuda_device):
     kernel.jvp(x, fcn, fcn)
     torch.cuda.synchronize()
     assert transport3d_cuda.transport3d_year_launches == before + 2
+
+
+# the bench's four-module gx1 family (bench.py:1226-1233): rates of the
+# assemble_rate_fields form, which the stream kernel rebuilds from factors
+GX1_FAMILY_SPECS = [
+    {"name": "t0"},
+    {"name": "t1", "sink_rate_per_year": 1.0 / 50.0},
+    {"name": "t2", "source_per_year": 1.0e-3, "sink_rate_per_year": 0.02},
+    {"name": "t3", "surf_restore_pv_cm_s": 2.0e-4, "surf_restore_target": 1.0},
+]
+STREAM_CASES = ("dense", "shed", "coupled", "seasonal", "stencil", "bf16",
+                "family")
+
+
+def _stream_years(case, device, shape):
+    """(kernel year, plain f32 year, y0, mask) of a small stream year with
+    masked columns, a nonzero vertical transport and the case's mode"""
+    nz, nlat, nlon = shape
+    mask = np.ones(shape, np.int32)
+    mask[:, 3, 2] = 0
+    mask[2:, 5, 4] = 0
+    circ = synthetic.gen_circulation(
+        nz, nlat, nlon, mask=mask, n_seasons=4 if case == "seasonal" else None)
+    rng = np.random.default_rng(23)
+    circ["WTT"] = rng.uniform(-2.0e9, 2.0e9, circ["WTT"].shape)
+    n_steps = max(480, synthetic.stable_steps_per_year(circ))
+    specs = ABIO_SPECS if case == "coupled" else FAMILY_SPECS
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, specs)
+    wet = (mask > 0).astype(np.float64)
+    t_dim = diag.shape[0]
+    kwargs = {"couple": couple}
+    if case in ("dense", "seasonal", "stencil"):
+        diag = -rng.uniform(0.0, 1.0e-7, diag.shape) * wet.reshape(nz, -1)
+        src = rng.uniform(0.0, 1.0e-8, src.shape) * wet.reshape(nz, -1)
+    if case == "shed":
+        diag = src = None
+        kwargs.update(recip_area=1.0 / circ["TAREA"], recip_dz=1.0 / circ["dz"],
+                      t_dim=t_dim)
+    if case in ("stencil", "bf16"):
+        kwargs.update(stencil=True, coef_bf16=case == "bf16")
+    if case == "family":
+        diag, src, _ = assemble_rate_fields(
+            GX1_FAMILY_SPECS, wet.reshape(nz, -1), float(circ["dz"][0]),
+            transport3d_cuda.SEC_PER_YEAR)
+        t_dim = diag.shape[0]
+    args = (kv, dz_r, diag, src, (0.0, transport3d_cuda.SEC_PER_YEAR), n_steps)
+    year_k = transport3d_stream_cuda.build_transport3d_year_stream(
+        coef, *args, **kwargs, device=device)
+    year_p = transport3d_stream_cuda.build_transport3d_year_stream_plain(
+        {key: None if arr is None else arr.to(device)
+         for key, arr in coef.items()},
+        *args, **kwargs, dtype=torch.float32)
+    y0 = torch.as_tensor(rng.uniform(0.0, 1.0, (t_dim,) + shape) * wet,
+                         dtype=torch.float32, device=device)
+    return year_k, year_p, y0, mask
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 6), (6, 37, 45)])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_stream_year_kernel_matches_plain(cuda_device, case, shape):
+    """every mode of B5 on a grid narrower than one tile (4 x 8 x 6: the
+    longitude wraps several times inside a tile) and on ragged tiles in
+    latitude and longitude (6 x 37 x 45)"""
+    year_k, year_p, y0, mask = _stream_years(case, cuda_device, shape)
+    assert year_k.stream_diag == (case in ("dense", "seasonal", "stencil"))
+    before = transport3d_stream_cuda.transport3d_stream_launches
+    y_k = year_k(y0)
+    torch.cuda.synchronize()
+    assert transport3d_stream_cuda.transport3d_stream_launches == before + 1
+    y_p = year_p(y0)
+
+    assert y_k.dtype == torch.float32 and torch.isfinite(y_k).all()
+    scale = float(y_p.abs().max())
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+    assert float((y_k - y0).abs().max()) / scale > 1e-3  # the year moved y
+    land = torch.as_tensor(mask == 0, device=cuda_device)
+    assert float(y_k[:, land].abs().max()) == 0.0  # land stays dry
+
+
+def test_stream_year_kernel_rejects_what_it_cannot_take(cuda_device):
+    year, _, y0, _ = _stream_years("dense", cuda_device, (4, 8, 6))
+    before = transport3d_stream_cuda.transport3d_stream_launches
+    for bad in (y0.cpu(), y0[:1], y0.to(torch.int32), y0.cpu().numpy()):
+        with pytest.raises((ValueError, TypeError)):
+            year(bad)
+    assert transport3d_stream_cuda.transport3d_stream_launches == before
+    # a float64 state is cast to float32, as the JAX kernel casts it
+    assert torch.equal(year(y0.double()), year(y0))
+    # a coupled family whose surface states overflow one block's shared
+    # memory is refused before any launch
+    coef, kv, dz_r, _, _, _ = family_year_inputs(
+        synthetic.gen_circulation(4, 8, 6), FAMILY_SPECS)
+    t_dim = 96
+    couple = np.zeros((t_dim, t_dim))
+    couple[1, 0] = 1.0e-6
+    with pytest.raises(ValueError, match="shared memory"):
+        transport3d_stream_cuda.build_transport3d_year_stream(
+            coef, kv, dz_r, None, None, (0.0, transport3d_cuda.SEC_PER_YEAR),
+            480, couple=couple, t_dim=t_dim, device=cuda_device)

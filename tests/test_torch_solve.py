@@ -134,8 +134,8 @@ def test_unported_modes_raise(models):
 
 def test_port_imports_no_jax():
     """every module of the port, and chip_smoke.py, load without jax and
-    without the JAX package, and the phosphorus and 3D paths' hooks run
-    without loading either"""
+    without the JAX package, and the phosphorus and 3D paths' hooks and a
+    stream year run without loading either"""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import torch\n"
@@ -161,6 +161,14 @@ def test_port_imports_no_jax():
         "x = k.init_iterate()\n"
         "f = k.comp_fcn(x)\n"
         "k.precond_apply(k.precond_setup(x), k.jvp(x, f, f))\n"
+        "from newton_krylov_ooc_tpu_torch.ops import transport3d_stream_cuda\n"
+        "from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (\n"
+        "    family_year_inputs)\n"
+        "c, kv, dz_r, d, s, cp = family_year_inputs(\n"
+        "    synthetic.gen_circulation(3, 4, 4), ABIO_SPECS)\n"
+        "year = transport3d_stream_cuda.build_transport3d_year_stream(\n"
+        "    c, kv, dz_r, d, s, (0.0, 1.0e6), 8, cp, stencil=True, device='cpu')\n"
+        "year(torch.zeros((2, 3, 4, 4)))\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'jaxlib', 'newton_krylov_ooc_tpu'))\n"
         "assert not loaded, loaded\n"
