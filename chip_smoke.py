@@ -4,8 +4,10 @@ hand-written CUDA year kernels: the py_driver_2d iage in-core spin-up (40 x
 50 depth x ypos, 8760 IMEX steps a year, kernel iage_year), the
 py_driver_2d phosphorus in-core spin-up (kernel phosphorus_year) and the 3D
 irf_offline in-core spin-up at POP gx3 extents (60 x 116 x 100, 2000 steps
-a year, kernel transport3d_year), and the streaming 3D year at POP gx1
-extents (60 x 384 x 320, 2000 steps a year, kernel transport3d_stream).
+a year, kernel transport3d_year), the streaming 3D year at POP gx1 extents
+(60 x 384 x 320, 2000 steps a year, kernel transport3d_stream), and the
+sharded py_driver_2d module-family spin-up on a (module, space) mesh
+(kernel iage_block, the IMEX step block of the blocked sharded year).
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -17,18 +19,20 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     each, started together, with the compiler's register, spill and
     shared-memory report;
   2 iage_year against its plain PyTorch version at full size, with the
-    aging source on (F) and zeroed (the JVP route), both timed: F's full
-    year against the plain f32 year, the rest (f64, the JVP route) over the
-    first tenth of the year;
+    aging source on (F) and zeroed (the JVP route): each full year timed,
+    and each held against the plain f32 and f64 years over the first tenth
+    of the year (876 steps; the F route's tenth, kernel and plain f32, are
+    its JSON entry's times);
   3 the iage Newton-Krylov solve through the port's CLI entry point,
     checked for convergence, for launches of the kernel, and against a
     float64 plain evaluation of F at the solution;
   4 phosphorus_year against its plain PyTorch version at 40 x 50 x 8760,
     from the initial iterate and from a constant 0.5, timed, with the
-    kernel's one-year drift of total phosphorus: the initial iterate's full
-    year against the plain f32 year, the rest over the first tenth;
+    kernel's one-year drift of total phosphorus: both held against the
+    plain f32 year (the initial iterate's also the f64 year) over the first
+    tenth, the initial iterate's tenth timed for its JSON entry;
   5 the phosphorus Newton-Krylov solve (PhosphorusKernel +
-    NewtonKrylovInCore, 730 steps a year, float32, F on the kernel and
+    NewtonKrylovInCore, 365 steps a year, float32, F on the kernel and
     JVPs by forward mode), checked for convergence, positivity, launches,
     and against a float64 plain evaluation of F at the solution;
   6 transport3d_year against its plain PyTorch year at gx3 (the JAX
@@ -40,16 +44,30 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     convergence, for launches, and against a float64 plain evaluation of F
     at the solution, with the seconds in F, JVPs and the preconditioner;
   8 transport3d_stream at gx1, uncut, for the JAX bench's gx1 inputs: the
-    steady upwind3 year (T = 1, recip_vol factored) against its plain float32
-    and float64 years, timed beside transport3d_year on the same inputs;
-    the stencil year in float32 and in bfloat16 coefficients, the bench's
+    steady upwind3 year (T = 1, recip_vol factored), timed at 2000 steps
+    beside transport3d_year on the same inputs, both held against the plain
+    float32 and float64 years at 400 steps (its JSON entry's times); the
+    stencil year in float32 and in bfloat16 coefficients, the bench's
     four-module factored family and a 12-month seasonal year, each against
     its plain year at 400 steps and timed at 2000; the coupled
     ABIO_DIC/DIC14 pair against its plain year at 400 steps.  Its timed runs
-    are the path whose launches the kernel's JSON entry counts.
-Then one JSON line describing each kernel -- with the least time the card
-could take for its year (bound_ms, from the H100's published peaks) -- and,
-last, one JSON line naming the device.
+    are the path whose launches the kernel's JSON entry counts;
+  9 iage_block in the JAX bench's million-cell blocked year (256 x 2000,
+    one module of two tracers, 12,615 steps, blocks of 8 steps, a (1, 1)
+    mesh): the full year timed; over its first tenth against the plain f32
+    blocked year and the plain f64 per-step year, and timed beside the
+    plain f32 tenth (its JSON entry's times); the full year on a (1, 4)
+    mesh of the one card against the (1, 1) year;
+ 10 the sharded spin-up through cli/sharded_spinup.py's entry function at
+    the example's defaults (4 modules, 24 x 48, 2920 steps, float32 on
+    iage_block) on a (1, 1) mesh and on 4 shards of the one card, checked
+    for convergence, for launches, against a float64 per-step evaluation
+    of F at each solution, and against each other.
+Then one JSON line describing each kernel -- its time and its plain
+version's over the same work (the first tenth of a 2D year, a 400-step gx1
+year, B4's full gx3 year), with the least time the card could take for
+that work (bound_ms, from the H100's published peaks) -- and, last, one
+JSON line naming the device.
 """
 
 import argparse
@@ -62,39 +80,58 @@ import time
 import numpy as np
 import torch
 
-from newton_krylov_ooc_tpu_torch.cli import incore_spinup, irf3d_spinup
+from newton_krylov_ooc_tpu_torch.cli import (
+    incore_spinup,
+    irf3d_spinup,
+    sharded_spinup,
+)
 from newton_krylov_ooc_tpu_torch.core.incore import NewtonKrylovInCore
 from newton_krylov_ooc_tpu_torch.models.irf_offline import synthetic
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d import phosphorus, physics
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
+    SURF_SLOW_FACTOR,
+    surf_restore_rate,
+)
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (
     IageKernel,
     PhosphorusKernel,
 )
 from newton_krylov_ooc_tpu_torch.ops import (
     compute,
+    imex_block_cuda,
     imex_cuda,
     transport3d_cuda,
     transport3d_stream_cuda,
 )
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
+from newton_krylov_ooc_tpu_torch.parallel.mesh import make_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
     family_year_inputs,
 )
+from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
+    ShardedIageKernel,
+    ShardedYearData,
+    build_sharded_year,
+    build_sharded_year_blocked,
+    build_sharded_year_blocked_plain,
+)
 
 NZ, NY, N_STEPS = 40, 50, 8760
-# the 2D kernels run their full year, timed and held against one plain f32
-# year; the other comparisons (f64, and the second input) run over the
-# first tenth of the year with the same dt, which keeps the run's plain
-# PyTorch years short
+# the 2D kernels run their full year, timed; they are held against their
+# plain f32 and f64 years over the first tenth of the year with the same dt
+# (tenth()), which keeps the run's plain PyTorch years short: a plain f32
+# year takes 47-63 s at 40 x 50 and 47 s at 256 x 2000
 CHECK_STEPS = N_STEPS // 10
 F32_TOL = 5e-5   # kernel vs f32 plain, relative to max|y|: f32 rounding
 F64_TOL = 1e-4   # kernel vs f64 plain: Kahan keeps f32 near f64
 SOLVE_TOL = 1e-5
 REPS = 5
-# the JAX in-core phosphorus test's settings (tests/test_imex_incore.py):
-# 730 steps keep the forward-mode JVPs, plain PyTorch on the card, short
-PHOS_STEPS = 730
+# the JAX in-core phosphorus test's tolerance (tests/test_imex_incore.py) at
+# half its 730 steps a year: the forward-mode JVPs are plain PyTorch on the
+# card, host-bound, and at 730 steps took 228-292 s on one H100, most of
+# this script's time
+PHOS_STEPS = 365
 PHOS_SOLVE_TOL = 1e-4
 PHOS_MAX_NEWTON = 4
 # the JAX bench's gx3 3D spin-up (cli/irf3d_spinup.py)
@@ -145,6 +182,16 @@ GX1_FAMILY_SPECS = [
     {"name": "t2", "source_per_year": 1.0e-3, "sink_rate_per_year": 0.02},
     {"name": "t3", "surf_restore_pv_cm_s": 2.0e-4, "surf_restore_target": 1.0},
 ]
+# the JAX bench's sharded million-cell year (bench.py:1404-1444)
+BIG = (256, 2000)
+BIG_BLOCK_STEPS = 8
+BIG_REPS = 3
+# the sharded spin-up at the JAX example's defaults, as cli/sharded_spinup.py
+# runs them; 4 shards on the one card take blocks of 4 steps (nyl = 12)
+SHARDED_MESHES = (("(1, 1)", ["1", "1"]),
+                  ("(1, 4) on one card", ["1", "4", "--shards-per-device",
+                                          "4", "--block-steps", "4"]))
+MESH_TOL = 1e-3  # the two meshes' f32 solutions, relative to max|x|
 
 
 def phase(num, title, **numbers):
@@ -169,8 +216,9 @@ def tenth(args):
     """a year builder's arguments (..., t_span, n_steps) cut to the first
     tenth of the year, with the same dt"""
     t_span, n_steps = args[-2:]
-    t_end = t_span[0] + (t_span[1] - t_span[0]) * CHECK_STEPS / n_steps
-    return (*args[:-2], (t_span[0], t_end), CHECK_STEPS)
+    steps = n_steps // 10
+    t_end = t_span[0] + (t_span[1] - t_span[0]) * steps / n_steps
+    return (*args[:-2], (t_span[0], t_end), steps)
 
 
 def reset_counts():
@@ -179,6 +227,7 @@ def reset_counts():
     imex_cuda.phosphorus_year_launches = 0
     transport3d_cuda.transport3d_year_launches = 0
     transport3d_stream_cuda.transport3d_stream_launches = 0
+    imex_block_cuda.iage_block_launches = 0
 
 
 def kernel_timing(year, y0):
@@ -256,8 +305,9 @@ def transport3d_bound(coef, kv, t_dim, n_steps):
 
 
 def phosphorus_kernel_phase(depth, ypos, device):
-    """phase 4: phosphorus_year against its plain version at full size;
-    returns (max abs error, kernel ms, plain f32 ms) over the inputs"""
+    """phase 4: phosphorus_year against its plain version at full size, the
+    year timed, the comparisons over its first tenth; returns (max abs
+    error, kernel ms, plain f32 ms) over the initial iterate's tenth"""
     probe = PhosphorusKernel(depth, ypos, incore_spinup.MODELINFO,
                              device=device, n_steps=PHOS_STEPS)
     span = (0.0, physics.SEC_PER_YEAR)
@@ -279,16 +329,17 @@ def phosphorus_kernel_phase(depth, ypos, device):
     }
     args32 = plain_args[torch.float32]
     short_k = imex_cuda.build_phosphorus_year(*tenth(args32), device=device)
-    worst_abs, kernel_ms, plain_ms = 0.0, [], []
+    worst_abs, tenth_ms = 0.0, {}
     for label, y0 in inputs.items():
         y_k, ms = kernel_timing(year_k, y0)
         p0 = total_p(depth, ypos, y0)
+        # the first tenth against the plain f32 year, both timed; the
+        # initial iterate's also against the plain f64 year
+        y_s, ms_s = kernel_timing(short_k, y0)
+        ref, ms_32 = timed(imex_cuda.build_phosphorus_year_plain(
+            *tenth(args32)), y0)
         numbers = {}
         if label == "init_iterate":
-            # the full year against the plain f32 year, timed; f64 over a tenth
-            y_32, ms_32 = timed(imex_cuda.build_phosphorus_year_plain(*args32),
-                                y0)
-            y_s = short_k(y0)
             y_64, ms_64 = timed(imex_cuda.build_phosphorus_year_plain(
                 *tenth(plain_args[torch.float64])), y0.double())
             numbers = {
@@ -297,19 +348,13 @@ def phosphorus_kernel_phase(depth, ypos, device):
                 "plain_f64_ms_per_tenth": ms_64,
                 "p_drift_plain_f64_tenth":
                     abs(total_p(depth, ypos, y_64) - p0) / p0,
-                "plain_f32_ms_per_year": ms_32,
             }
-            ref, kernel_y = y_32, y_k
-            plain_ms.append(ms_32)
-        else:
-            ref, _ = timed(imex_cuda.build_phosphorus_year_plain(
-                *tenth(args32)), y0)
-            kernel_y = short_k(y0)
         scale = float(ref.abs().max())
-        err_32 = rel_err(kernel_y, ref, scale)
-        phase(4, f"phosphorus_year vs plain ({label})", rel_err_f32=err_32,
-              compared_steps=N_STEPS if ref is y_32 else CHECK_STEPS,
-              **numbers, kernel_ms_per_year=ms,
+        err_32 = rel_err(y_s, ref, scale)
+        phase(4, f"phosphorus_year vs plain ({label})",
+              rel_err_f32_tenth=err_32, compared_steps=CHECK_STEPS,
+              **numbers, kernel_ms_per_year=ms, kernel_ms_tenth=ms_s,
+              plain_f32_ms_tenth=ms_32,
               p_drift_kernel=abs(total_p(depth, ypos, y_k) - p0) / p0,
               max_abs_y=scale)
         if not (torch.isfinite(y_k).all() and err_32 <= F32_TOL
@@ -319,9 +364,10 @@ def phosphorus_kernel_phase(depth, ypos, device):
                 f"({label}): {err_32:.3e} vs f32 (bound {F32_TOL}), "
                 f"{numbers.get('rel_err_f64_tenth')} vs f64 (bound {F64_TOL})"
             )
-        worst_abs = max(worst_abs, float((kernel_y - ref).abs().max()))
-        kernel_ms.append(ms)
-    return worst_abs, statistics.median(kernel_ms), statistics.median(plain_ms)
+        worst_abs = max(worst_abs, float((y_s - ref).abs().max()))
+        tenth_ms[label] = (ms_s, ms_32)
+    # the JSON line's times are the initial iterate's, over the tenth
+    return (worst_abs, *tenth_ms["init_iterate"])
 
 
 def phosphorus_solve_phase(depth, ypos, device):
@@ -548,7 +594,7 @@ def stream_check(label, y_k, y_ref, scale, tol, wet, **numbers):
 def stream_kernel_phase(device):
     """phase 8: transport3d_stream against its plain years at gx1, uncut;
     returns (launches on its path, max abs error, steady kernel ms, plain
-    f32 ms, bound ms, bounded by)"""
+    f32 ms, bound ms, bounded by), the times over the 400-step year"""
     f32, f64 = torch.float32, torch.float64
     stream = transport3d_stream_cuda
     nz, nlat, nlon = GX1
@@ -570,40 +616,58 @@ def stream_kernel_phase(device):
         coef, kv, dz_r, None, None, span, n_steps, **shed, device=device)
     y_up, ms, count = stream_path_run(year, y0, REPS)
     launches += count
-    plain = {dtype: stream.build_transport3d_year_stream_plain(
-        _to(coef, device, dtype), kv, dz_r, None, None, span, n_steps,
-        t_dim=1) for dtype in (f32, f64)}
-    y_32, ms_32 = timed(plain[f32], y0)
-    y_64, ms_64 = timed(plain[f64], y0.double())
+    if not (torch.isfinite(y_up).all()
+            and float((y_up * (1.0 - wet)).abs().max()) == 0.0):
+        raise SystemExit("chip_smoke: the upwind3 year is not finite or wets "
+                         "land")
     zeros = np.zeros((1, nz, nlat * nlon))
     year_b4 = transport3d_cuda.build_transport3d_year(
         coef, kv, dz_r, zeros, zeros, span, n_steps, device=device)
     y_b4, ms_b4 = kernel_timing_reps(year_b4, y0, GX1_REPS)
+    b4_vs_b5 = rel_err(y_b4, y_up, float(y_up.abs().max()))
+    # B5 and B4 against the plain f32 and f64 years at 400 steps, as the
+    # other cases below (plain years of 2000 steps take 27 s and 43 s)
+    year_c = stream.build_transport3d_year_stream(
+        coef, kv, dz_r, None, None, span, GX1_CHECK_STEPS, **shed,
+        device=device)
+    y_c, ms_c = kernel_timing_reps(year_c, y0, GX1_REPS)
+    plain = {dtype: stream.build_transport3d_year_stream_plain(
+        _to(coef, device, dtype), kv, dz_r, None, None, span, GX1_CHECK_STEPS,
+        t_dim=1) for dtype in (f32, f64)}
+    y_32, ms_32 = timed(plain[f32], y0)
+    y_64, ms_64 = timed(plain[f64], y0.double())
     scale = float(y_64.abs().max())
-    b4_err = rel_err(y_b4, y_32, scale)
-    if not b4_err <= F32_TOL:
+    b4_err = rel_err(transport3d_cuda.build_transport3d_year(
+        coef, kv, dz_r, zeros, zeros, span, GX1_CHECK_STEPS, device=device)(y0),
+        y_32, scale)
+    if not (b4_err <= F32_TOL and b4_vs_b5 <= F32_TOL):
         raise SystemExit(f"chip_smoke: transport3d_year at gx1 disagrees with "
-                         f"the plain year: {b4_err:.3e}")
+                         f"the plain year ({b4_err:.3e}) or with B5 "
+                         f"({b4_vs_b5:.3e})")
     bound_ms, bound_by = stream_bound(year, 1, n_cells, n_steps)
+    bound_c, bound_c_by = stream_bound(year_c, 1, n_cells, GX1_CHECK_STEPS)
     steps = f"{nz}x{nlat}x{nlon}, {n_steps} steps"
     worst_abs = max(worst_abs, stream_check(
-        f"transport3d_stream vs plain f32 (steady upwind3, {steps}, T=1)",
-        y_up, y_32, scale, F32_TOL, wet, rel_err_f64=rel_err(y_up, y_64, scale),
+        f"transport3d_stream vs plain f32 (steady upwind3, {steps}, T=1; "
+        f"compared at {GX1_CHECK_STEPS} steps)",
+        y_c, y_32, scale, F32_TOL, wet, rel_err_f64=rel_err(y_c, y_64, scale),
         kernel_ms_per_year=ms, kernel_ms_per_step=ms / n_steps,
-        plain_f32_ms_per_year=ms_32, plain_f64_ms_per_year=ms_64,
+        kernel_ms_400_steps=ms_c, plain_f32_ms_400_steps=ms_32,
+        plain_f64_ms_400_steps=ms_64,
         b4_ms_per_year=ms_b4, b4_ms_per_step=ms_b4 / n_steps,
-        b4_rel_err_f32=b4_err,
+        b4_rel_err_f32=b4_err, b4_rel_err_vs_b5=b4_vs_b5,
         cuda_launches_per_year=stream.cuda_launches_per_year(n_steps),
         b4_cuda_launches_per_year=transport3d_cuda.cuda_launches_per_year(
             n_steps),
         hbm_bytes_per_step=year.hbm_bytes_per_step,
         est_flops_per_step=year.est_flops_per_step, bound_ms=bound_ms,
-        bound_by=bound_by))
-    if not rel_err(y_up, y_64, scale) <= F64_TOL:
+        bound_by=bound_by, bound_ms_400_steps=bound_c))
+    if not rel_err(y_c, y_64, scale) <= F64_TOL:
         raise SystemExit("chip_smoke: transport3d_stream disagrees with the "
                          "plain f64 year")
-    timing = (ms, ms_32, bound_ms, bound_by)
-    del plain, y_64, year_b4
+    # the JSON line's times are of the same work, the 400-step year
+    timing = (ms_c, ms_32, bound_c, bound_c_by)
+    del plain, y_64, year_b4, year_c
 
     # -- the stencil years (bench.py:945-980), the four-module family
     # (bench.py:1226-1236) and the coupled pair: 400 steps against the plain
@@ -691,8 +755,9 @@ def stream_kernel_phase(device):
 
 
 def iage_kernel_phase(depth, ypos, device):
-    """phase 2: iage_year against its plain version at full size; returns
-    (max abs error, kernel ms, plain f32 ms) over the two routes"""
+    """phase 2: iage_year against its plain version at full size, the year
+    timed, the comparisons over its first tenth; returns (max abs error,
+    kernel ms, plain f32 ms) over the F route's tenth"""
     grids = {
         dtype: physics.make_grid(depth, ypos, incore_spinup.MODELINFO,
                                  device=device, dtype=dtype)
@@ -708,45 +773,37 @@ def iage_kernel_phase(depth, ypos, device):
               probe.init_iterate().cpu().numpy()),
         "JVP": (np.zeros((2, 1, 1)), rng.standard_normal((2, NZ, NY))),
     }
-    worst_abs, kernel_ms, plain_ms = 0.0, [], []
+    worst_abs, tenth_ms = 0.0, {}
     for route, (source, y0_np) in inputs.items():
         args = {dtype: (grids[dtype], diag, source, span, N_STEPS)
                 for dtype in (torch.float32, torch.float64)}
         year_k = imex_cuda.build_iage_year(*args[torch.float32], device=device)
         y0 = torch.as_tensor(y0_np, dtype=torch.float32, device=device)
-        y_k, ms = kernel_timing(year_k, y0)
-        y_s = imex_cuda.build_iage_year(*tenth(args[torch.float32]),
-                                        device=device)(y0)
+        _, ms = kernel_timing(year_k, y0)
+        # the first tenth against the plain f32 and f64 years, all timed
+        y_s, ms_s = kernel_timing(imex_cuda.build_iage_year(
+            *tenth(args[torch.float32]), device=device), y0)
+        ref, ms_32 = timed(imex_cuda.build_iage_year_plain(
+            *tenth(args[torch.float32])), y0)
         y_64, _ = timed(imex_cuda.build_iage_year_plain(
             *tenth(args[torch.float64])), y0.double())
         err_64 = rel_err(y_s, y_64, float(y_64.abs().max()))
-        numbers = {}
-        if route == "F":
-            # the full year against the plain f32 year, timed
-            ref, ms_32 = timed(imex_cuda.build_iage_year_plain(
-                *args[torch.float32]), y0)
-            kernel_y = y_k
-            numbers["plain_f32_ms_per_year"] = ms_32
-            plain_ms.append(ms_32)
-        else:
-            ref, _ = timed(imex_cuda.build_iage_year_plain(
-                *tenth(args[torch.float32])), y0)
-            kernel_y = y_s
         scale = float(ref.abs().max())
-        err_32 = rel_err(kernel_y, ref, scale)
-        phase(2, f"kernel vs plain ({route})", rel_err_f32=err_32,
-              compared_steps=N_STEPS if route == "F" else CHECK_STEPS,
-              rel_err_f64_tenth=err_64, kernel_ms_per_year=ms, **numbers,
-              max_abs_y=scale)
+        err_32 = rel_err(y_s, ref, scale)
+        phase(2, f"kernel vs plain ({route})", rel_err_f32_tenth=err_32,
+              rel_err_f64_tenth=err_64, compared_steps=CHECK_STEPS,
+              kernel_ms_per_year=ms, kernel_ms_tenth=ms_s,
+              plain_f32_ms_tenth=ms_32, max_abs_y=scale)
         if not (err_32 <= F32_TOL and err_64 <= F64_TOL):
             raise SystemExit(
                 f"chip_smoke: kernel disagrees with the plain year ({route}): "
                 f"{err_32:.3e} vs f32 (bound {F32_TOL}), "
                 f"{err_64:.3e} vs f64 (bound {F64_TOL})"
             )
-        worst_abs = max(worst_abs, float((kernel_y - ref).abs().max()))
-        kernel_ms.append(ms)
-    return worst_abs, statistics.median(kernel_ms), statistics.median(plain_ms)
+        worst_abs = max(worst_abs, float((y_s - ref).abs().max()))
+        tenth_ms[route] = (ms_s, ms_32)
+    # the JSON line's times are the F route's, over the tenth
+    return (worst_abs, *tenth_ms["F"])
 
 
 def iage_solve_phase(depth, ypos, device):
@@ -787,11 +844,133 @@ def iage_solve_phase(depth, ypos, device):
     return launches
 
 
+def stable_step_count(ypos, base_steps):
+    """steps a year that keep the explicit (Heun) lateral half inside its
+    stability bounds, dt <= 0.8 min(dy^2 / (2K), dy / v): the JAX bench's
+    rule (bench.py:67-73)"""
+    dy = float(np.min(ypos.delta))
+    dt_max = 0.8 * min(dy * dy / (2.0 * 1000.0), dy / 0.1)
+    return max(int(base_steps), int(np.ceil(physics.SEC_PER_YEAR / dt_max)))
+
+
+def iage_block_phase(device):
+    """phase 9: iage_block in the bench's million-cell blocked year; returns
+    (max abs error, kernel ms, plain f32 ms, bound ms, bounded by) over the
+    first tenth of the year"""
+    nz, ny = BIG
+    depth, ypos = incore_spinup.build_axes(nz, ny)
+    n_steps = stable_step_count(ypos, N_STEPS)
+    rate = surf_restore_rate(depth)
+    diag = np.zeros((1, 2, nz, ny), np.float32)
+    diag[:, 0, 0, :] = -rate
+    diag[:, 1, 0, :] = -SURF_SLOW_FACTOR * rate
+    aging = np.full((1, 2), 1.0 / physics.SEC_PER_YEAR, np.float32)
+    args = (depth, ypos, incore_spinup.MODELINFO, diag, aging,
+            (0.0, physics.SEC_PER_YEAR), n_steps)
+    one = make_mesh(1, 1, devices=[device])
+    four = make_mesh(1, 4, devices=[device] * 4)
+    y0 = torch.full((1, 2, nz, ny), 0.5, dtype=torch.float32, device=device)
+    blocked = {"block_steps": BIG_BLOCK_STEPS}
+
+    reset_counts()
+    y_k, ms = kernel_timing_reps(build_sharded_year_blocked(one, *args,
+                                                            **blocked),
+                                 y0, BIG_REPS)
+    launches_per_year = imex_block_cuda.iage_block_launches / (BIG_REPS + 1)
+    # the first tenth against the plain f32 blocked and f64 per-step years
+    short = tenth(args)
+    y_kt, ms_kt = kernel_timing_reps(
+        build_sharded_year_blocked(one, *short, **blocked), y0, BIG_REPS)
+    y_pt, ms_pt = timed(build_sharded_year_blocked_plain(one, *short,
+                                                          **blocked), y0)
+    year64 = build_sharded_year(
+        one, ShardedYearData(depth, ypos, incore_spinup.MODELINFO, 1),
+        diag, aging.reshape(1, 2, 1, 1), *short[-2:])
+    y_64, ms_64 = timed(year64, y0.double())
+    scale = float(y_64.abs().max())
+    err_32 = rel_err(y_kt, y_pt, scale)
+    err_64 = rel_err(y_kt, y_64, scale)
+    # four shards on the one card, 2000 / 4 = 500 columns each
+    y_4, ms_4 = timed(build_sharded_year_blocked(four, *args, **blocked), y0)
+    err_4 = rel_err(y_4, y_k, float(y_k.abs().max()))
+    nx = ny + 4 * BIG_BLOCK_STEPS  # the (1, 1) window: 2 k halo columns a side
+    bound_ms, bound_by = iage_bound(2, nz, nx, n_steps)
+    bound_t, bound_t_by = iage_bound(2, nz, nx, short[-1])
+    phase(9, f"iage_block vs plain ({nz}x{ny}, {n_steps} steps, blocks of "
+             f"{BIG_BLOCK_STEPS}; tenth {short[-1]} steps)",
+          rel_err_f32_tenth=err_32, rel_err_f64_tenth=err_64,
+          rel_err_4_shards=err_4, kernel_ms_per_year=ms,
+          kernel_ms_per_step=ms / n_steps, kernel_ms_4_shards=ms_4,
+          kernel_ms_tenth=ms_kt, plain_f32_ms_tenth=ms_pt,
+          plain_f64_ms_tenth=ms_64, launches_per_year=launches_per_year,
+          bound_ms_per_year=bound_ms, bound_ms_tenth=bound_t,
+          bound_by=bound_by, max_abs_y=scale)
+    finite = all(bool(torch.isfinite(arr).all()) for arr in (y_k, y_kt, y_4))
+    if not (finite and err_32 <= F32_TOL and err_64 <= F64_TOL
+            and err_4 <= F32_TOL):
+        raise SystemExit(
+            f"chip_smoke: iage_block disagrees (finite {finite}): {err_32:.3e} "
+            f"vs f32 over the tenth (bound {F32_TOL}), {err_64:.3e} vs f64 "
+            f"(bound {F64_TOL}), 4 shards {err_4:.3e} from 1 (bound "
+            f"{F32_TOL})"
+        )
+    # the JSON line's times are of the same work, the tenth
+    return (float((y_kt - y_pt).abs().max()), ms_kt, ms_pt, bound_t,
+            bound_t_by)
+
+
+def sharded_solve_phase(device):
+    """phase 10: the sharded spin-up through cli/sharded_spinup.py on two
+    meshes; returns iage_block's launches over both solves"""
+    solutions, launches = [], 0
+    for label, argv in SHARDED_MESHES:
+        reset_counts()
+        kernel, x, fcn, info = sharded_spinup.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        count = imex_block_cuda.iage_block_launches
+        launches += count
+        rel = info["fcn_norm"] / info["x_norm"]
+        years = info["f_evals"] + info["jvp_evals"]
+        # F at the solution by the float64 per-step year
+        check = ShardedIageKernel(
+            make_mesh(1, 1, devices=[device]), kernel.depth, kernel.ypos,
+            kernel.modelinfo, kernel.module_rates, n_steps=kernel.n_steps)
+        x64 = x.double()
+        rel64 = (check.norm(check.comp_fcn(x64)) / check.norm(x64)).max().item()
+        phase(10, f"sharded spin-up {label}",
+              newton_iterations=info["iterations"],
+              krylov_iterations=[int(k) for k in info["krylov_iterations"]],
+              seconds=info["seconds"], f_seconds=info["f_seconds"],
+              f_evals=info["f_evals"], jvp_seconds=info["jvp_seconds"],
+              jvp_evals=info["jvp_evals"], max_rel_resid=float(rel.max()),
+              f64_plain_rel_resid=rel64, kernel_launches=count,
+              launches_per_year=count / max(years, 1))
+        tol = sharded_spinup.SOLVER["newton_rel_tol"]
+        if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
+            raise SystemExit(f"chip_smoke: non-finite values in the sharded "
+                             f"solution {label}")
+        if not ((rel < tol).all() and rel64 < tol):
+            raise SystemExit(f"chip_smoke: sharded residual {rel.max():.3e}, "
+                             f"f64 {rel64:.3e} {label} (bound {tol})")
+        if count < years or count == 0:
+            raise SystemExit(f"chip_smoke: {count} iage_block launches for "
+                             f"{years} years {label}")
+        solutions.append(x)
+    diff = rel_err(solutions[1], solutions[0],
+                   float(solutions[0].abs().max()))
+    phase(10, "sharded spin-up meshes", rel_diff=diff, tol=MESH_TOL,
+          launches=launches)
+    if not diff < MESH_TOL:
+        raise SystemExit(f"chip_smoke: the meshes' solutions differ by "
+                         f"{diff:.3e} (bound {MESH_TOL})")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(9),
-                        default=list(range(9)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(11),
+                        default=list(range(11)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -833,6 +1012,9 @@ def main(argv=None):
         7: lambda: transport3d_solve_phase(device),
         # 8: the streaming 3D year at gx1
         8: lambda: stream_kernel_phase(device),
+        # 9, 10: the step block kernel, then the sharded spin-up
+        9: lambda: iage_block_phase(device),
+        10: lambda: sharded_solve_phase(device),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -841,7 +1023,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(9)):
+    if phases != set(range(11)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0
@@ -854,10 +1036,13 @@ def main(argv=None):
     t3d_launches = results[7]
     (stream_launches, stream_abs, stream_ms, stream_plain_ms, stream_bound_ms,
      stream_by) = results[8]
+    block_abs, block_ms, block_plain_ms, block_bound_ms, block_by = results[9]
+    block_launches = results[10]
 
     # no single PyTorch call computes an IMEX year: library_ms is null
-    iage_bound_ms, iage_by = iage_bound(2, NZ, NY, N_STEPS)
-    phos_bound_ms, phos_by = phosphorus_bound(NZ, NY, N_STEPS)
+    # B1's and B2's times are over the first tenth of the year
+    iage_bound_ms, iage_by = iage_bound(2, NZ, NY, CHECK_STEPS)
+    phos_bound_ms, phos_by = phosphorus_bound(NZ, NY, CHECK_STEPS)
     print(json.dumps({"kernels": [{
         "name": "iage_year",
         "route": "cuda",
@@ -905,6 +1090,18 @@ def main(argv=None):
         "plain_ms": stream_plain_ms,
         "bound_ms": stream_bound_ms,
         "bound_by": stream_by,
+        "library_ms": None,
+    }, {
+        "name": "iage_block",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/iage_block.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/imex_pallas.py:687",
+        "launches": block_launches,
+        "max_abs_err": block_abs,
+        "ms": block_ms,
+        "plain_ms": block_plain_ms,
+        "bound_ms": block_bound_ms,
+        "bound_by": block_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,9 @@ with nvcc at first use into <repo>/build/torch_kernels/, keyed on a hash of
 its sources and flags, into a shared library with a plain C interface that
 ctypes loads.  The build knows every kernel source of the port (SOURCES),
 the 3D transport years of ops/transport3d_cuda.py and
-ops/transport3d_stream_cuda.py included, so one build_libraries() call
-compiles them all at once.
+ops/transport3d_stream_cuda.py and the IMEX step block of
+ops/imex_block_cuda.py included, so one build_libraries() call compiles
+them all at once.
 """
 
 from __future__ import annotations
@@ -56,12 +57,14 @@ SOURCES = {
     "phosphorus_year": "phosphorus_year.cu",
     "transport3d_year": "transport3d_year.cu",
     "transport3d_stream": "transport3d_stream.cu",
+    "iage_block": "iage_block.cu",
 }
 INCLUDES = {
     "iage_year": ("imex_common.cuh",),
     "phosphorus_year": ("imex_common.cuh",),
     "transport3d_year": ("transport3d_common.cuh",),
     "transport3d_stream": ("transport3d_common.cuh",),
+    "iage_block": ("imex_common.cuh",),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -260,13 +263,9 @@ def build_iage_year_plain(grid, vert_diag, source, t_span, n_steps):
     return year
 
 
-def _header_and_grid(grid):
-    """the packed float32 constants both kernels start with, in
-    csrc/imex_common.cuh's order: header (bld_min, log_shallow, log_deep,
-    tfrac[4], ffrac[4], padding), ca, cb (nz, ny-1); wv (nz-1, ny); dy_r;
-    dz_r; dz_mid; dz_mid_r; depth_mid; bld_max -- header first, grid after"""
-    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
-    f32 = _grid_to(grid, torch.device("cpu"), torch.float32)
+def mixing_header():
+    """the scalars every 2D kernel starts with (csrc/imex_common.cuh's
+    Header): bld_min, log_shallow, log_deep, tfrac[4], ffrac[4], padding"""
     tfrac = np.asarray(physics._BLD_TFRAC, np.float64)
     ffrac = np.asarray(physics._BLD_FRAC, np.float64)
     header = np.zeros(_HEADER)
@@ -274,6 +273,16 @@ def _header_and_grid(grid):
                   physics.VERT_MIX_LOG_DEEP)
     header[3:3 + len(tfrac)] = tfrac
     header[3 + len(tfrac):3 + 2 * len(tfrac)] = ffrac
+    return torch.as_tensor(header)
+
+
+def _header_and_grid(grid):
+    """the packed float32 constants both kernels start with, in
+    csrc/imex_common.cuh's order: header, ca, cb (nz, ny-1); wv (nz-1, ny);
+    dy_r; dz_r; dz_mid; dz_mid_r; depth_mid; bld_max -- header first, grid
+    after"""
+    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+    f32 = _grid_to(grid, torch.device("cpu"), torch.float32)
     vvel_int = f32.vvel[:, 1:-1]
     hmc = f32.horiz_mix_coeff.expand(nz, ny - 1)
     # fused lateral flux G = 0.5(y_l+y_r)v - K(y_r-y_l) = ca*y_l + cb*y_r
@@ -287,7 +296,7 @@ def _header_and_grid(grid):
         ca, cb, f32.wvel[1:-1, :], f32.dy_r, f32.dz_r, f32.dz_mid,
         f32.dz_mid_r, f32.depth_mid, bld_max,
     ]
-    return torch.as_tensor(header), grid_parts
+    return mixing_header(), grid_parts
 
 
 def _flat32(parts):

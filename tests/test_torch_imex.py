@@ -195,7 +195,7 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(imex_cuda, "BUILD_DIR", tmp_path / "build")
 
     built = imex_cuda.build_libraries()
-    assert sorted(built) == ["iage_year", "phosphorus_year",
+    assert sorted(built) == ["iage_block", "iage_year", "phosphorus_year",
                              "transport3d_stream", "transport3d_year"]
     for name, (path, seconds) in built.items():
         assert path.parent == tmp_path / "build" and path.name.startswith(name)
@@ -220,7 +220,7 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     assert again["iage_year"] == (built["iage_year"][0], 0.0)
     built = again
 
-    # the shared 2D header keys both 2D kernels and neither 3D one; a
+    # the shared 2D header keys the three 2D kernels and neither 3D one; a
     # failing source is named, the others built
     header = csrc / "imex_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -232,4 +232,6 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
         assert imex_cuda._library_path(name) == built[name][0]
     assert imex_cuda._library_path("iage_year") != built["iage_year"][0]
     assert imex_cuda._library_path("iage_year").exists()
+    assert imex_cuda._library_path("iage_block") != built["iage_block"][0]
+    assert imex_cuda._library_path("iage_block").exists()
     assert not imex_cuda._library_path("phosphorus_year").exists()

@@ -1,7 +1,7 @@
-"""the CUDA year kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu,
-csrc/transport3d_year.cu, csrc/transport3d_stream.cu) against their plain
-PyTorch versions; need an NVIDIA Hopper card and nvcc, and skip without a
-card
+"""the CUDA kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu,
+csrc/transport3d_year.cu, csrc/transport3d_stream.cu, csrc/iage_block.cu)
+against their plain PyTorch versions; need an NVIDIA Hopper card and nvcc,
+and skip without a card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
 """
@@ -19,14 +19,21 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     surf_restore_rate,
 )
 from newton_krylov_ooc_tpu_torch.ops import (
+    imex_block_cuda,
     imex_cuda,
     transport3d_cuda,
     transport3d_stream_cuda,
 )
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
+from newton_krylov_ooc_tpu_torch.parallel import mesh as port_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
     family_year_inputs,
+)
+from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
+    ShardedIageKernel,
+    build_sharded_year_blocked,
+    build_sharded_year_blocked_plain,
 )
 
 torch.set_num_threads(1)
@@ -296,3 +303,161 @@ def test_stream_year_kernel_rejects_what_it_cannot_take(cuda_device):
         transport3d_stream_cuda.build_transport3d_year_stream(
             coef, kv, dz_r, None, None, (0.0, transport3d_cuda.SEC_PER_YEAR),
             480, couple=couple, t_dim=t_dim, device=cuda_device)
+
+
+def _b3_window(c_dim, nz, nx, profile, noise=2.0, seed=29):
+    """one closed window's static arrays for B3 and (y0, comp0): faces zero
+    at the window's edges, restoring diag, uniform rates or surface-only
+    depth profiles; y0 the initial iterate's depth profile plus uniform
+    noise of amplitude `noise`"""
+    depth, ypos = build_axes(nz, nx)
+    grid = physics.make_grid(depth, ypos, MODELINFO, device="cpu",
+                             dtype=torch.float32)
+    vf = grid.vvel.numpy().copy()
+    vf[:, 0] = vf[:, -1] = 0.0
+    hf = np.zeros((nz, nx + 1), np.float32)
+    hf[:, 1:-1] = grid.horiz_mix_coeff.numpy()
+    rng = np.random.default_rng(seed)
+    diag = np.zeros((c_dim, nz, nx), np.float32)
+    diag[:, 0, :] = -surf_restore_rate(depth)
+    if profile:
+        source = np.zeros((c_dim, nz))
+        source[:, 0] = rng.uniform(0.5, 2.0, c_dim) / (10.0 * 86400.0)
+    else:
+        source = rng.uniform(0.5, 2.0, c_dim) / physics.SEC_PER_YEAR
+    bld_max = np.interp(grid.ypos_mid.double().numpy(), physics._BLD_YPOS,
+                        physics._BLD_MAX)
+    args = (vf, hf, grid.wvel.numpy(), diag, source, bld_max,
+            grid.dy_r.numpy(), grid.dz_r.numpy(), grid.dz_mid.numpy(),
+            grid.dz_mid_r.numpy(), grid.depth_mid.numpy())
+    column = np.interp(depth.mid, [55.0, 200.0], [0.0, 2.0])
+    y0 = column[None, :, None] + noise * rng.uniform(0.0, 1.0,
+                                                     (c_dim, nz, nx))
+    c0 = rng.uniform(-1e-7, 1e-7, (c_dim, nz, nx))
+    return args, y0, c0
+
+
+def _on(device, *arrs):
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in arrs]
+
+
+@pytest.mark.parametrize("c_dim, nz, nx, j_steps, profile, noise, steps", [
+    (4, 10, 20, 2, False, 2.0, 2920),
+    (2, 24, 80, 8, True, 2.0, 2920),
+    (3, 40, 300, 5, False, 2.0, 2920),
+    (2, 256, 60, 3, False, 1e-3, 12615),
+    (2, 256, 60, 3, True, 1e-3, 12615),
+])
+@pytest.mark.parametrize("t_start", [0.0, 1.3e7])
+def test_step_block_kernel_matches_plain(cuda_device, c_dim, nz, nx, j_steps,
+                                         profile, noise, steps, t_start):
+    """B3 against its plain version on all nx columns, in the shallow
+    season and in the deep mixed layer; nz = 256 takes tiles and one step
+    a launch.  Its surface layers are 1.6 m thick: noise there makes the CN
+    right-hand sides some 1e4 times the state, and float32 Thomas and PCR
+    then part by ~1e-4, so at 256 levels it starts nearly smooth and takes
+    the bench's step there (12,615 a year), as phase 9's year does"""
+    args, y0, c0 = _b3_window(c_dim, nz, nx, profile, noise)
+    dt = physics.SEC_PER_YEAR / steps
+    y, c = _on(cuda_device, y0, c0)
+    block = imex_block_cuda.build_iage_step_block(*args, dt, j_steps,
+                                                  device=cuda_device)
+    j_inner, _ = block.plan
+    before = imex_block_cuda.iage_block_launches
+    y_k, c_k = block(y, c, t_start)
+    torch.cuda.synchronize()
+    assert (imex_block_cuda.iage_block_launches - before
+            == -(-j_steps // j_inner))
+    y_p, c_p = imex_block_cuda.build_iage_step_block_plain(
+        *args, dt, j_steps, device=cuda_device)(y, c, t_start)
+    assert torch.isfinite(y_k).all() and torch.isfinite(c_k).all()
+    scale = float(y_p.abs().max())
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+    assert float(((y_k + c_k) - (y_p + c_p)).abs().max()) / scale < TOL
+    assert float((y_k - y).abs().max()) / scale > 1e-5  # the block moved y
+
+
+@pytest.mark.parametrize("nx, smem_columns, plan", [
+    (20, 12, (1, 8)),    # tiles of 8, 8 and a ragged 4; one step a launch
+    (50, 40, (2, 32)),   # tiles of 32 and a ragged 18; two steps a launch
+])
+def test_step_block_tiles_and_split_steps_match_one_block(
+        cuda_device, nx, smem_columns, plan):
+    """a shared-memory budget that forces tiles and split steps gives, on
+    every column, exactly what one block over the whole window gives: the
+    halo's error never reaches an owned column"""
+    c_dim, nz, j_steps = 3, 10, 4
+    args, y0, c0 = _b3_window(c_dim, nz, nx, False)
+    dt = physics.SEC_PER_YEAR / 2920
+    y, c = _on(cuda_device, y0, c0)
+    whole = imex_block_cuda.build_iage_step_block(*args, dt, j_steps,
+                                                  device=cuda_device)
+    assert whole.plan == (j_steps, nx)
+    limit = 4 * (9 * nz * smem_columns + 3 * nz - 2)
+    tiled = imex_block_cuda.build_iage_step_block(
+        *args, dt, j_steps, device=cuda_device, smem_limit=limit)
+    assert tiled.plan == plan
+    y_w, c_w = whole(y, c, 1.0e7)
+    y_t, c_t = tiled(y, c, 1.0e7)
+    torch.cuda.synchronize()
+    assert torch.equal(y_t, y_w) and torch.equal(c_t, c_w)
+
+
+def test_step_block_kernel_rejects_what_it_cannot_take(cuda_device):
+    args, y0, c0 = _b3_window(2, 8, 12, False)
+    block = imex_block_cuda.build_iage_step_block(*args, 100.0, 2,
+                                                  device=cuda_device)
+    y, c = _on(cuda_device, y0, c0)
+    before = imex_block_cuda.iage_block_launches
+    for bad in (y.double(), y.cpu(), y[:1], y.transpose(1, 2).contiguous()
+                .transpose(1, 2)):
+        with pytest.raises(ValueError):
+            block(bad, c, 0.0)
+    assert imex_block_cuda.iage_block_launches == before
+
+
+def test_blocked_year_kernel_matches_plain_and_one_shard(cuda_device):
+    """the blocked year on B3 against the same year on B3's plain version,
+    and four shards on the one card against one"""
+    nz, ny, n_steps, k = 12, 32, 73, 3
+    depth, ypos = build_axes(nz, ny)
+    rate = surf_restore_rate(depth)
+    diag = np.zeros((2, 2, nz, ny), np.float32)
+    diag[:, 0, 0, :] = -rate
+    diag[:, 1, 0, :] = -SURF_SLOW_FACTOR * rate
+    aging = np.full((2, 2), 1.0 / physics.SEC_PER_YEAR, np.float32)
+    args = (depth, ypos, MODELINFO, diag, aging,
+            (0.0, physics.SEC_PER_YEAR), n_steps)
+    y0 = torch.as_tensor(np.random.default_rng(31).uniform(
+        0.0, 2.0, (2, 2, nz, ny)), dtype=torch.float32, device=cuda_device)
+    one = port_mesh.make_mesh(1, 1, devices=[cuda_device])
+    four = port_mesh.make_mesh(1, 4, devices=[cuda_device] * 4)
+    before = imex_block_cuda.iage_block_launches
+    y1 = build_sharded_year_blocked(one, *args, block_steps=k)(y0)
+    torch.cuda.synchronize()
+    assert imex_block_cuda.iage_block_launches - before == -(-(n_steps - 1)
+                                                             // k)
+    y_p = build_sharded_year_blocked_plain(one, *args, block_steps=k)(y0)
+    y4 = build_sharded_year_blocked(four, *args, block_steps=k)(y0)
+    scale = float(y_p.abs().max())
+    assert torch.isfinite(y1).all() and y1.device == y0.device
+    assert float((y1 - y_p).abs().max()) / scale < TOL
+    assert float((y4 - y1).abs().max()) / scale < TOL
+
+
+def test_sharded_iage_kernel_runs_b3(cuda_device):
+    """F and the JVP of the family kernel's float32 state go through B3"""
+    depth, ypos = build_axes(8, 8)
+    kernel = ShardedIageKernel(
+        port_mesh.make_mesh(1, 2, devices=[cuda_device] * 2), depth, ypos,
+        MODELINFO, (1.0 + 0.25 * np.arange(4)) / physics.SEC_PER_YEAR,
+        n_steps=36, use_kernel=True, block_steps=2)
+    x = kernel.init_iterate()
+    assert x.device == cuda_device and x.dtype == torch.float32
+    before = imex_block_cuda.iage_block_launches
+    fcn = kernel.comp_fcn(x)
+    kernel.jvp(x, fcn, fcn)
+    torch.cuda.synchronize()
+    # 17 blocks and a remainder, on each of two shards, for each year
+    assert imex_block_cuda.iage_block_launches - before == 2 * 2 * 18
