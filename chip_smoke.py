@@ -62,10 +62,27 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     the example's defaults (4 modules, 24 x 48, 2920 steps, float32 on
     iage_block) on a (1, 1) mesh and on 4 shards of the one card, checked
     for convergence, for launches, against a float64 per-step evaluation
-    of F at each solution, and against each other.
+    of F at each solution, and against each other;
+ 11 transport3d_sweep at gx1, uncut, on phase 8's steady upwind3 inputs:
+    the 2000-step year on a 1-shard mesh timed beside transport3d_stream
+    (the overhead in percent; the two agree within 1e-6), on 4 shards of
+    the card at 1 and 2 steps a sweep (one timed run after a warm-up, each
+    within 5e-5 of 1 shard); at
+    400 steps on 4 shards, against the same year through the plain sweep
+    and against phase 8's plain f32 and f64 years (its JSON entry's
+    times), then the stencil f32 and the 12-month seasonal coupled
+    ABIO_DIC/DIC14 years on 4 shards against their plain-sweep years.
+    Its timed 2000-step years are the path whose launches the kernel's
+    JSON entry counts;
+ 12 the sharded 3D spin-up through cli/irf3d_spinup.py's entry function at
+    the example's defaults (10 x 24 x 20, 4 months, the family and the
+    coupled pair) with 1, 4 and 2x2 shards on the card (one shard runs
+    transport3d_year; more run the per-step sharded year, plain PyTorch
+    as in the JAX package), checked for convergence, against a float64
+    plain evaluation of F at each solution, and against each other.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
-year, B4's full gx3 year), with the least time the card could take for
+year, on 4 shards for transport3d_sweep, B4's full gx3 year), with the least time the card could take for
 that work (bound_ms, from the H100's published peaks) -- and, last, one
 JSON line naming the device.
 """
@@ -102,11 +119,13 @@ from newton_krylov_ooc_tpu_torch.ops import (
     imex_cuda,
     transport3d_cuda,
     transport3d_stream_cuda,
+    transport3d_sweep_cuda,
 )
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel.mesh import make_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
+    build_sharded_transport3d_year_stream,
     family_year_inputs,
 )
 from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
@@ -192,6 +211,16 @@ SHARDED_MESHES = (("(1, 1)", ["1", "1"]),
                   ("(1, 4) on one card", ["1", "4", "--shards-per-device",
                                           "4", "--block-steps", "4"]))
 MESH_TOL = 1e-3  # the two meshes' f32 solutions, relative to max|x|
+# phase 11: B6 on 1 shard repeats B5's arithmetic; 4 shards of the card
+SWEEP_VS_B5_TOL = 1e-6
+GX1_SHARDS = 4
+# phase 12: the 3D spin-up at the JAX example's defaults on three meshes
+IRF3D_MESHES = (("1 shard", ["1"]),
+                ("4 shards", ["4", "--shards-per-device", "4"]),
+                ("2x2 shards", ["2x2", "--shards-per-device", "4"]))
+IRF3D_MESH_TOL = 1e-4  # the meshes' f32 solutions, relative to max|x|
+# phase 8's plain 400-step gx1 years, which phase 11 holds B6 against
+PLAIN_GX1 = {}
 
 
 def phase(num, title, **numbers):
@@ -228,6 +257,7 @@ def reset_counts():
     transport3d_cuda.transport3d_year_launches = 0
     transport3d_stream_cuda.transport3d_stream_launches = 0
     imex_block_cuda.iage_block_launches = 0
+    transport3d_sweep_cuda.transport3d_sweep_launches = 0
 
 
 def kernel_timing(year, y0):
@@ -667,7 +697,8 @@ def stream_kernel_phase(device):
                          "plain f64 year")
     # the JSON line's times are of the same work, the 400-step year
     timing = (ms_c, ms_32, bound_c, bound_c_by)
-    del plain, y_64, year_b4, year_c
+    PLAIN_GX1.update(f32=y_32, f64=y_64)
+    del plain, year_b4, year_c
 
     # -- the stencil years (bench.py:945-980), the four-module family
     # (bench.py:1226-1236) and the coupled pair: 400 steps against the plain
@@ -752,6 +783,223 @@ def stream_kernel_phase(device):
         bound_ms=stream_bound(year_t, 1, n_cells, n_steps_s)[0]))
     phase(8, "transport3d_stream path", launches=launches)
     return (launches, worst_abs, *timing)
+
+
+def sweep_kernel_phase(device):
+    """phase 11: transport3d_sweep at gx1 on phase 8's steady upwind3
+    inputs; returns (launches on its path, max abs error, 4-shard kernel
+    ms, plain-sweep ms, bound ms, bounded by), the times over the 400-step
+    year"""
+    f32, f64 = torch.float32, torch.float64
+    stream = transport3d_stream_cuda
+    nz, nlat, nlon = GX1
+    n_cells = nz * nlat * nlon
+    span = (0.0, transport3d_cuda.SEC_PER_YEAR)
+    noise = np.random.default_rng(0).uniform(0.0, 1.0, (1,) + GX1)
+    circ = synthetic.gen_circulation(*GX1)
+    n_steps = max(GX1_MIN_STEPS, synthetic.stable_steps_per_year(circ))
+    coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
+    wet = torch.as_tensor(circ["mask"] > 0, dtype=f32, device=device)
+    y0 = wet * torch.as_tensor(noise, dtype=f32, device=device)
+    shed = {"recip_area": 1.0 / circ["TAREA"], "recip_dz": 1.0 / circ["dz"],
+            "t_dim": 1}
+    args = (coef, kv, dz_r, None, None, span)
+    one = make_mesh(1, 1, devices=[device])
+    four = make_mesh(1, GX1_SHARDS, devices=[device] * GX1_SHARDS)
+
+    def sharded(mesh, steps, k=1, **kwargs):
+        return build_sharded_transport3d_year_stream(
+            mesh, *args, steps, steps_per_sweep=k, **dict(shed, **kwargs))
+
+    # -- the path: the 2000-step year on one shard in turns with B5, then on
+    # four shards of the card at 1 and 2 steps a sweep
+    year5 = stream.build_transport3d_year_stream(*args, n_steps, **shed,
+                                                 device=device)
+    year1 = sharded(one, n_steps)
+    year4 = {k: sharded(four, n_steps, k) for k in (1, 2)}
+    reset_counts()
+    timed(year5, y0)
+    timed(year1, y0)
+    ms5, ms1 = [], []
+    for _ in range(GX1_REPS):
+        y_5, ms = timed(year5, y0)
+        ms5.append(ms)
+        y_1, ms = timed(year1, y0)
+        ms1.append(ms)
+    ms4, err4 = {}, {}
+    scale = float(y_5.abs().max())
+    for k, year in year4.items():
+        timed(year, y0)
+        y_4, ms4[k] = timed(year, y0)
+        err4[k] = rel_err(y_4, y_1, scale)
+    launches = transport3d_sweep_cuda.transport3d_sweep_launches
+    expected = ((1 + GX1_REPS) * year1.n_sweeps + 2 * GX1_SHARDS
+                * sum(year.n_sweeps for year in year4.values()))
+    ms5, ms1 = statistics.median(ms5), statistics.median(ms1)
+    err1 = rel_err(y_1, y_5, scale)
+    bound_y, bound_y_by = stream_bound(year5, 1, n_cells, n_steps)
+    phase(11, f"transport3d_sweep path ({nz}x{nlat}x{nlon}, {n_steps} steps, "
+              f"T=1, upwind3, recip_vol factored)",
+          b6_1shard_ms_per_year=ms1, b5_ms_per_year=ms5,
+          irf3d_gx1_stream_sharded1_overhead_pct=100.0 * (ms1 / ms5 - 1.0),
+          rel_err_1shard_vs_b5=err1, bit_identical=bool(torch.equal(y_1, y_5)),
+          b6_4shards_k1_ms_per_year=ms4[1], b6_4shards_k2_ms_per_year=ms4[2],
+          rel_err_4shards_k1=err4[1], rel_err_4shards_k2=err4[2],
+          halo_rows={k: year.halo for k, year in year4.items()},
+          sweeps_per_year={k: year.n_sweeps for k, year in year4.items()},
+          halo_copies_per_year={k: year.halo_copies
+                                for k, year in year4.items()},
+          halo_mbytes_per_year={k: year.halo_bytes / 1e6
+                                for k, year in year4.items()},
+          pass_a_blocks_per_shard={1: -(-(nlat + 2 * year1.halo) // 16)
+                                   * -(-nlon // 32),
+                                   4: -(-(nlat // GX1_SHARDS + 2
+                                          * year4[1].halo) // 16)
+                                   * -(-nlon // 32)},
+          bound_ms_per_year=bound_y, bound_by=bound_y_by, launches=launches)
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {launches} transport3d_sweep launches "
+                         f"for {expected} shard sweeps")
+    if not (torch.isfinite(y_1).all() and err1 <= SWEEP_VS_B5_TOL
+            and max(err4.values()) <= F32_TOL):
+        raise SystemExit(f"chip_smoke: transport3d_sweep disagrees: 1 shard "
+                         f"{err1:.3e} from B5 (bound {SWEEP_VS_B5_TOL}), 4 "
+                         f"shards {err4} from 1 (bound {F32_TOL})")
+    del year5, year1, year4, y_5, y_4
+
+    # -- 400 steps on four shards against the plain sweeps and phase 8's
+    # plain f32 and f64 years (computed here only when phase 8 did not run)
+    if not PLAIN_GX1:
+        for dtype in (f32, f64):
+            PLAIN_GX1[{f32: "f32", f64: "f64"}[dtype]] = (
+                stream.build_transport3d_year_stream_plain(
+                    _to(coef, device, dtype), kv, dz_r, None, None, span,
+                    GX1_CHECK_STEPS, t_dim=1)(y0.to(dtype)))
+    year_c = sharded(four, GX1_CHECK_STEPS)
+    y_c, ms_c = kernel_timing_reps(year_c, y0, GX1_REPS)
+    y_p, ms_p = timed(sharded(four, GX1_CHECK_STEPS, plain=True), y0)
+    y_32, y_64 = PLAIN_GX1["f32"], PLAIN_GX1["f64"]
+    scale = float(y_64.abs().max())
+    errs = {"plain_sweep": rel_err(y_c, y_p, float(y_p.abs().max())),
+            "plain_f32": rel_err(y_c, y_32, scale),
+            "plain_f64": rel_err(y_c, y_64, scale)}
+    bound_c, bound_c_by = stream_bound(stream.build_transport3d_year_stream(
+        *args, GX1_CHECK_STEPS, **shed, device=device), 1, n_cells,
+        GX1_CHECK_STEPS)
+    worst_abs = float((y_c - y_p).abs().max())
+    phase(11, f"transport3d_sweep vs plain ({GX1_SHARDS} shards, "
+              f"{GX1_CHECK_STEPS} steps, upwind3)",
+          rel_err_plain_sweep=errs["plain_sweep"],
+          rel_err_plain_f32=errs["plain_f32"],
+          rel_err_plain_f64=errs["plain_f64"], kernel_ms_400_steps=ms_c,
+          plain_sweep_ms_400_steps=ms_p, bound_ms_400_steps=bound_c,
+          max_abs_y=scale)
+    if not (torch.isfinite(y_c).all() and errs["plain_sweep"] <= F32_TOL
+            and errs["plain_f32"] <= F32_TOL and errs["plain_f64"] <= F64_TOL):
+        raise SystemExit(f"chip_smoke: transport3d_sweep at 400 steps "
+                         f"disagrees: {errs}")
+    if float((y_c * (1.0 - wet)).abs().max()) != 0.0:
+        raise SystemExit("chip_smoke: transport3d_sweep wets land")
+    timing = (ms_c, ms_p, bound_c, bound_c_by)
+    PLAIN_GX1.clear()
+    del year_c, y_c, y_p, y_32, y_64
+
+    # -- the stencil f32 year, and the 12-month seasonal coupled pair, on
+    # four shards at 400 steps against their plain-sweep years
+    circ_s = synthetic.gen_circulation(*GX1, n_seasons=12)
+    wet_s = torch.as_tensor(circ_s["mask"] > 0, dtype=f32, device=device)
+    abio = family_year_inputs(circ_s, irf3d_spinup.ABIO_SPECS)
+    coef_s, kv_s, dz_r_s, diag_s, src_s, couple_s = abio
+    cases = (
+        ("stencil f32", wet, y0, (coef, kv, dz_r, None, None),
+         dict(shed, stencil=True)),
+        ("seasonal 12 months, coupled ABIO pair", wet_s,
+         (wet_s * torch.as_tensor(noise, dtype=f32, device=device))
+         .expand((2,) + GX1).contiguous(),
+         (coef_s, kv_s, dz_r_s, diag_s, src_s),
+         {"couple": couple_s, "recip_area": 1.0 / circ_s["TAREA"],
+          "recip_dz": 1.0 / circ_s["dz"]}),
+    )
+    for label, wet_c, y0_c, inputs, kwargs in cases:
+        def build(**extra):
+            return build_sharded_transport3d_year_stream(
+                four, *inputs, span, GX1_CHECK_STEPS, **kwargs, **extra)
+
+        y_k, ms_k = timed(build(), y0_c)
+        y_p, ms_p = timed(build(plain=True), y0_c)
+        err = rel_err(y_k, y_p, float(y_p.abs().max()))
+        phase(11, f"transport3d_sweep vs plain ({label}, {GX1_SHARDS} "
+                  f"shards, {GX1_CHECK_STEPS} steps, T={y0_c.shape[0]})",
+              rel_err=err, tol=F32_TOL, kernel_ms_400_steps=ms_k,
+              plain_sweep_ms_400_steps=ms_p, max_abs_y=float(y_p.abs().max()))
+        if not (torch.isfinite(y_k).all() and err <= F32_TOL):
+            raise SystemExit(f"chip_smoke: transport3d_sweep disagrees "
+                             f"({label}): {err:.3e} (bound {F32_TOL})")
+        if float((y_k * (1.0 - wet_c)).abs().max()) != 0.0:
+            raise SystemExit(f"chip_smoke: transport3d_sweep wets land "
+                             f"({label})")
+        worst_abs = max(worst_abs, float((y_k - y_p).abs().max()))
+        del y_k, y_p
+    return (launches, worst_abs, *timing)
+
+
+def irf3d_sharded_solve_phase(device):
+    """phase 12: the 3D spin-up through cli/irf3d_spinup.py on three meshes
+    of the one card; returns transport3d_year's launches (the 1-shard
+    solves)"""
+    defaults = irf3d_spinup.parse_args([])
+    grid = [str(defaults.nz), str(defaults.nlat), str(defaults.nlon)]
+    circ = synthetic.gen_circulation(defaults.nz, defaults.nlat, defaults.nlon,
+                                     n_seasons=defaults.months or None)
+    tol = irf3d_spinup.SOLVER["newton_rel_tol"]
+    checks, solutions, launches = {}, {}, 0
+    for label, shard_args in IRF3D_MESHES:
+        reset_counts()
+        results = irf3d_spinup.main(
+            grid + [shard_args[0], str(defaults.months), "--device", "cuda",
+                    *shard_args[1:]])
+        torch.cuda.synchronize()
+        count = transport3d_cuda.transport3d_year_launches
+        launches += count
+        for (kernel, x, fcn, info), (name, specs) in zip(
+                results, (("family", irf3d_spinup.FAMILY_SPECS),
+                          ("abio", irf3d_spinup.ABIO_SPECS))):
+            rel = info["fcn_norm"] / info["x_norm"]
+            if name not in checks:
+                checks[name] = ShardedTransport3dKernel(
+                    circ, specs, kernel.n_steps, device=device,
+                    dtype=torch.float64)
+            check = checks[name]
+            x64 = x.double()
+            rel64 = (check.norm(check.comp_fcn(x64))
+                     / check.norm(x64)).max().item()
+            solutions.setdefault(name, {})[label] = x
+            phase(12, f"irf3d spin-up {label} ({name})",
+                  newton_iterations=info["iterations"],
+                  krylov_iterations=[int(k) for k in info["krylov_iterations"]],
+                  seconds=info["seconds"], max_rel_resid=float(rel.max()),
+                  f64_plain_rel_resid=rel64, transport3d_year_launches=count,
+                  on_kernel=kernel.use_kernel)
+            if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
+                raise SystemExit(f"chip_smoke: non-finite values in the 3D "
+                                 f"solution ({label}, {name})")
+            if not ((rel < tol).all() and rel64 < 1e-4):
+                raise SystemExit(
+                    f"chip_smoke: 3D residual {float(rel.max()):.3e} (bound "
+                    f"{tol}), f64 {rel64:.3e} (bound 1e-4) ({label}, {name})")
+        if (count > 0) != (label == IRF3D_MESHES[0][0]):
+            raise SystemExit(f"chip_smoke: {count} transport3d_year launches "
+                             f"in the {label} solves")
+    diffs = {}
+    for name, by_mesh in solutions.items():
+        ref = by_mesh[IRF3D_MESHES[0][0]]
+        for label, x in by_mesh.items():
+            diffs[f"{name} {label}"] = rel_err(x, ref, float(ref.abs().max()))
+    phase(12, "irf3d spin-up meshes", rel_diff=diffs, tol=IRF3D_MESH_TOL)
+    if not max(diffs.values()) <= IRF3D_MESH_TOL:
+        raise SystemExit(f"chip_smoke: the 3D meshes' solutions differ: "
+                         f"{diffs} (bound {IRF3D_MESH_TOL})")
+    return launches
 
 
 def iage_kernel_phase(depth, ypos, device):
@@ -969,8 +1217,8 @@ def sharded_solve_phase(device):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(11),
-                        default=list(range(11)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(13),
+                        default=list(range(13)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -1015,6 +1263,9 @@ def main(argv=None):
         # 9, 10: the step block kernel, then the sharded spin-up
         9: lambda: iage_block_phase(device),
         10: lambda: sharded_solve_phase(device),
+        # 11, 12: the sweep kernel at gx1, then the sharded 3D spin-up
+        11: lambda: sweep_kernel_phase(device),
+        12: lambda: irf3d_sharded_solve_phase(device),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -1023,7 +1274,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(11)):
+    if phases != set(range(13)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0
@@ -1038,6 +1289,8 @@ def main(argv=None):
      stream_by) = results[8]
     block_abs, block_ms, block_plain_ms, block_bound_ms, block_by = results[9]
     block_launches = results[10]
+    (sweep_launches, sweep_abs, sweep_ms, sweep_plain_ms, sweep_bound_ms,
+     sweep_by) = results[11]
 
     # no single PyTorch call computes an IMEX year: library_ms is null
     # B1's and B2's times are over the first tenth of the year
@@ -1102,6 +1355,18 @@ def main(argv=None):
         "plain_ms": block_plain_ms,
         "bound_ms": block_bound_ms,
         "bound_by": block_by,
+        "library_ms": None,
+    }, {
+        "name": "transport3d_sweep",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/transport3d_sweep.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/transport3d_stream_pallas.py:393",
+        "launches": sweep_launches,
+        "max_abs_err": sweep_abs,
+        "ms": sweep_ms,
+        "plain_ms": sweep_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": sweep_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,30 @@
 """3D offline IRF-transport spin-up: a family of linear tracer modules
-riding an ocean circulation, solved on one device.
+riding an ocean circulation, solved on one device or on a latitude (x
+longitude) sharded mesh.
 
 Port of examples/irf3d_spinup.py.  A family of tracer modules (a decaying
 dye and an ideal-age tracer), then the gas-exchange-coupled abiotic
 DIC+DIC14 pair, ride a synthetic gyre circulation (seasonal with `months`
-> 0) and solve to their cyclostationary state: the IMEX year (kernel B4,
-csrc/transport3d_year.cu, for float32 on the card), exact linear JVPs,
-host-driven left-preconditioned GMRES and the column-local PCR vertical
-preconditioner.
+> 0) and solve to their cyclostationary state: the IMEX year, exact
+linear JVPs, host-driven left-preconditioned GMRES and the column-local
+PCR vertical preconditioner.
 
     python -m newton_krylov_ooc_tpu_torch.cli.irf3d_spinup \\
-        [nz] [nlat] [nlon] [shards] [months] [--device cuda|cpu]
+        [nz] [nlat] [nlon] [shards] [months] [--device cuda|cpu] \\
+        [--shards-per-device N]
 
-`shards` must be 1: the latitude-sharded year is ROADMAP item A5.3.  The
-solver settings are the JAX example's, without its fused GMRES (jit_gmres,
+`shards` is a shard count N (latitude-sharded) or NYxNX (a latitude x
+longitude process grid).  One shard runs the year on one device (kernel
+B4, csrc/transport3d_year.cu, for float32 on the card); more run the
+per-step sharded year (parallel/sharded_transport3d.py, plain PyTorch, as
+the JAX kernel runs its shard_map year).  A mesh of N shards needs N /
+shards-per-device cards: `4 --shards-per-device 4` puts four shards on one
+card; on the CPU every shard lies on the one CPU device.  The solver
+settings are the JAX example's, without its fused GMRES (jit_gmres,
 ROADMAP A1.7): the host-driven GMRES gives the same iterates.
+
+    python -m newton_krylov_ooc_tpu_torch.cli.irf3d_spinup 4 8 6 2x2 0 \\
+        --device cpu
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 from ..core.incore import NewtonKrylovInCore
 from ..models.irf_offline import synthetic
 from ..ops.compute import resolve_device
+from ..parallel.mesh import make_mesh, mesh_devices
 from ..parallel.sharded_transport3d import ShardedTransport3dKernel
 
 SOLVER = {
@@ -77,7 +88,24 @@ def parse_args(argv=None):
     parser.add_argument("months", nargs="?", type=int, default=4)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+    parser.add_argument("--shards-per-device", type=int, default=1,
+                        help="mesh shards on each card (default 1)")
     return parser.parse_args(argv)
+
+
+def build_mesh(shards, device, shards_per_device=1):
+    """the mesh `shards` names (N, or NYxNX) on `device`'s kind, or None
+    for one shard (the kernel then runs on `device` alone)"""
+    if "x" in shards:
+        n_y, n_x = (int(v) for v in shards.split("x"))
+    else:
+        n_y, n_x = int(shards), None
+    n_shards = n_y * (n_x or 1)
+    if n_shards == 1:
+        return None
+    return make_mesh(1, n_y, devices=mesh_devices(device, n_shards,
+                                                  shards_per_device),
+                     n_space_x=n_x)
 
 
 def _solve(kernel, device):
@@ -94,26 +122,26 @@ def main(argv=None):
     """run both spin-ups; returns [(kernel, x, fcn, info)] for the family
     and for the coupled pair, for callers that check the results"""
     args = parse_args(argv)
-    if args.shards != "1":
-        raise NotImplementedError(
-            f"shards={args.shards}: the latitude-sharded 3D year is ROADMAP "
-            "item A5.3, not ported yet; use 1"
-        )
     device = resolve_device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    mesh = build_mesh(args.shards, device, args.shards_per_device)
+    placement = {"device": device} if mesh is None else {"mesh": mesh}
     circ = synthetic.gen_circulation(
         args.nz, args.nlat, args.nlon, n_seasons=args.months or None
     )
     n_steps = synthetic.stable_steps_per_year(circ)
+    layout = "one shard" if mesh is None else " x ".join(
+        f"{size} {axis}" for axis, size in mesh.shape.items()
+        if axis != "module")
     print(
         f"grid {args.nz}x{args.nlat}x{args.nlon}, "
         f"{args.months or 'steady'} season(s), {n_steps} steps/year, "
-        f"device {device} ({name})"
+        f"{layout} on device {device} ({name})"
     )
 
     results = []
     kernel = ShardedTransport3dKernel(circ, FAMILY_SPECS, n_steps,
-                                      device=device, dtype=torch.float32)
+                                      dtype=torch.float32, **placement)
     x, fcn, info = _solve(kernel, device)
     rel = info["fcn_norm"] / info["x_norm"]
     print(
@@ -124,7 +152,7 @@ def main(argv=None):
     results.append((kernel, x, fcn, info))
 
     kernel2 = ShardedTransport3dKernel(circ, ABIO_SPECS, n_steps,
-                                       device=device, dtype=torch.float32)
+                                       dtype=torch.float32, **placement)
     x2, fcn2, info2 = _solve(kernel2, device)
     rel2 = info2["fcn_norm"] / info2["x_norm"]
     surf = x2[0, :, 0].cpu().numpy()

@@ -29,7 +29,8 @@ def cn_vertical_increment(kv, diag, dz_r, v, dt):
     Crank-Nicolson increment for dv/dt = (Lz + D) v over dt:
     solve (I - dt/2 (Lz + D)) dv = dt (Lz + D) v; the update is v + dv
 
-    kv: (nz-1, ny) diffusivity / delta_mid at interior edges
+    kv: (nz-1, ny) diffusivity / delta_mid at interior edges, or (...,
+        nz-1, ny) with leading axes that broadcast against v's
     diag: (..., nz, ny) local linear rates (e.g. surface restoring)
     v: (..., nz, ny); leading axes are batched
     """
@@ -37,9 +38,9 @@ def cn_vertical_increment(kv, diag, dz_r, v, dt):
 
     up = kv * dz_r[:-1, None]   # coupling to the layer below: a[k, k+1]
     lo = kv * dz_r[1:, None]    # coupling to the layer above: a[k, k-1]
-    zero = kv.new_zeros((1, kv.shape[-1]))
-    du = torch.cat([up, zero], dim=0)
-    dl = torch.cat([zero, lo], dim=0)
+    zero = kv.new_zeros(kv.shape[:-2] + (1, kv.shape[-1]))
+    du = torch.cat([up, zero], dim=-2)
+    dl = torch.cat([zero, lo], dim=-2)
     dmain = -(du + dl) + diag
 
     # rhs = dt * (Lz + D) v via the flux-form stencil

@@ -28,9 +28,10 @@ with nvcc at first use into <repo>/build/torch_kernels/, keyed on a hash of
 its sources and flags, into a shared library with a plain C interface that
 ctypes loads.  The build knows every kernel source of the port (SOURCES),
 the 3D transport years of ops/transport3d_cuda.py and
-ops/transport3d_stream_cuda.py and the IMEX step block of
-ops/imex_block_cuda.py included, so one build_libraries() call compiles
-them all at once.
+ops/transport3d_stream_cuda.py, the IMEX step block of
+ops/imex_block_cuda.py and the stream sweep of
+ops/transport3d_sweep_cuda.py included, so one build_libraries() call
+compiles them all at once.
 """
 
 from __future__ import annotations
@@ -58,13 +59,17 @@ SOURCES = {
     "transport3d_year": "transport3d_year.cu",
     "transport3d_stream": "transport3d_stream.cu",
     "iage_block": "iage_block.cu",
+    "transport3d_sweep": "transport3d_sweep.cu",
 }
 INCLUDES = {
     "iage_year": ("imex_common.cuh",),
     "phosphorus_year": ("imex_common.cuh",),
     "transport3d_year": ("transport3d_common.cuh",),
-    "transport3d_stream": ("transport3d_common.cuh",),
+    "transport3d_stream": ("transport3d_stream_passes.cuh",
+                           "transport3d_common.cuh"),
     "iage_block": ("imex_common.cuh",),
+    "transport3d_sweep": ("transport3d_stream_passes.cuh",
+                          "transport3d_common.cuh"),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

@@ -198,6 +198,63 @@ def _check_smem(lib, t_dim, coupled, device):
         )
 
 
+def pack_operands(coef32, kv32, dz_r32, diag, src, t_dim, diag_fac, src_fac,
+                  recip_area, recip_dz, st, couple32, upwind3, device):
+    """(operands, seasonal flags, opts) as csrc/transport3d_stream.cu's
+    launch reads them, for B5's grid or B6's slab.
+
+    coef32, kv32, dz_r32: the float32 coefficients on `device`; diag, src:
+    the dense (T, nz, nh) float32 fields the kernel reads, or None (then
+    diag_fac / src_fac, the _factor_rate_field factors, or none at all);
+    recip_area, recip_dz: the factors the kernel rebuilds recip_vol from,
+    or None to read it; st: the stencil fields (float32 or bfloat16) in
+    stencil mode, else None; couple32: the (T, T) coupling or None."""
+    rates = None
+    if diag_fac is not None or src_fac is not None:
+        rows = np.zeros((4, t_dim), np.float32)
+        for row, fac in ((0, diag_fac), (2, src_fac)):
+            if fac is not None:
+                rows[row], rows[row + 1] = fac
+        rates = torch.tensor(rows, device=device)
+    stencil = st is not None
+    sep_rv = recip_area is not None and not stencil
+    operands = {
+        "wet": coef32["wet"],
+        "recip_vol": None if stencil or sep_rv else coef32["recip_vol"],
+        "recip_area": (torch.as_tensor(recip_area, device=device)
+                       if sep_rv else None),
+        "recip_dz": torch.as_tensor(recip_dz, device=device) if sep_rv else None,
+        **{name: None if stencil else coef32.get(name) for name in _FACES},
+        "st": st,
+        "kv": kv32,
+        "dz_r": dz_r32,
+        "diag": diag,
+        "src": src,
+        "rates": rates,
+        "couple": couple32,
+    }
+    operands = {name: None if arr is None else arr.contiguous()
+                for name, arr in operands.items()}
+    seasonal_flags = np.array(
+        [int(operands[name] is not None and (
+            (name in _FACES and operands[name].ndim == 4)
+            or (name == "kv" and operands[name].ndim == 3)))
+         for name in _SLOTS], np.int32)
+
+    def rate_mode(fac, dense_field):
+        if fac is not None:
+            return _RATE_FACTORED
+        return _RATE_DENSE if dense_field is not None else _RATE_NONE
+
+    if stencil:
+        mode = _STENCIL_BF16 if st.dtype == torch.bfloat16 else _STENCIL_F32
+    else:
+        mode = _FLUX
+    opts = np.array([mode, int(upwind3), rate_mode(diag_fac, diag),
+                     rate_mode(src_fac, src)], np.int32)
+    return operands, seasonal_flags, opts
+
+
 def _hbm_bytes_per_step(operands, t_dim, n, seasonal):
     """bytes one step of the port's design moves if each pass reads each
     operand it uses once and writes each result once (the halo's re-reads
@@ -356,50 +413,17 @@ def build_transport3d_year_stream(
     def dense(arr):
         return _tensor(arr, f32, device).reshape(t_dim, nz, nh).contiguous()
 
-    rates = None
-    if diag_fac is not None or src_fac is not None:
-        rows = np.zeros((4, t_dim), np.float32)
-        for row, fac in ((0, diag_fac), (2, src_fac)):
-            if fac is not None:
-                rows[row], rows[row + 1] = fac
-        rates = torch.tensor(rows, device=device)
     st = None
     if stencil:
         st = _stencil_fields({key: None if arr is None else arr.to(device)
                               for key, arr in coef.items()}, f32, False)
         if coef_bf16:
             st = st.to(torch.bfloat16)
-    operands = {
-        "wet": coef32["wet"],
-        "recip_vol": None if stencil or sep_rv else coef32["recip_vol"],
-        "recip_area": (torch.as_tensor(recip_area, device=device)
-                       if sep_rv else None),
-        "recip_dz": torch.as_tensor(recip_dz, device=device) if sep_rv else None,
-        **{name: None if stencil else coef32.get(name) for name in _FACES},
-        "st": st,
-        "kv": kv32,
-        "dz_r": dz_r32,
-        "diag": dense(diag) if stream_diag else None,
-        "src": dense(src) if stream_src else None,
-        "rates": rates,
-        "couple": couple32,
-    }
-    operands = {name: None if arr is None else arr.contiguous()
-                for name, arr in operands.items()}
-    seasonal_flags = np.array(
-        [int(operands[name] is not None and (
-            (name in _FACES and operands[name].ndim == 4)
-            or (name == "kv" and operands[name].ndim == 3)))
-         for name in _SLOTS], np.int32)
-    def rate_mode(fac, dense_field):
-        if fac is not None:
-            return _RATE_FACTORED
-        return _RATE_DENSE if dense_field else _RATE_NONE
-
-    mode = (_STENCIL_BF16 if coef_bf16 else _STENCIL_F32) if stencil else _FLUX
-    opts = np.array([mode, int(coef.get("sel3p_e") is not None),
-                     rate_mode(diag_fac, stream_diag),
-                     rate_mode(src_fac, stream_src)], np.int32)
+    operands, seasonal_flags, opts = pack_operands(
+        coef32, kv32, dz_r32, dense(diag) if stream_diag else None,
+        dense(src) if stream_src else None, t_dim, diag_fac, src_fac,
+        recip_area if sep_rv else None, recip_dz if sep_rv else None, st,
+        couple32, coef.get("sel3p_e") is not None, device)
     shape = (t_dim, nz, nlat, nlon)
 
     def state(y0):

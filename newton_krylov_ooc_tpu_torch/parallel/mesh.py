@@ -1,4 +1,5 @@
-"""a (module, space) mesh of torch devices, in one process.
+"""a (module, space) mesh of torch devices, in one process, with an
+optional 'space_x' axis for the 3D grids.
 
 Port of newton_krylov_ooc_tpu/parallel/mesh.py.  The JAX mesh names two
 axes:
@@ -31,37 +32,47 @@ from ..ops.compute import resolve_device
 
 
 class Mesh:
-    """a (n_module, n_space) grid of torch devices
+    """a (n_module, n_space) or (n_module, n_space, n_space_x) grid of torch
+    devices
 
-    devices[mi][sj] holds the block of module rows mi and ypos columns sj;
-    shape is {"module": n_module, "space": n_space}, as jax's Mesh.shape"""
+    devices[mi][sj] holds the block of module rows mi and ypos (latitude)
+    blocks sj, and devices[mi][sj][sx] longitude block sx of it when the
+    mesh has a space_x axis; shape is {"module": n_module, "space":
+    n_space}, plus "space_x": n_space_x when given, as jax's Mesh.shape"""
 
-    def __init__(self, devices, n_module, n_space):
-        if len(devices) != n_module * n_space:
+    def __init__(self, devices, n_module, n_space, n_space_x=None):
+        n_x = 1 if n_space_x is None else n_space_x
+        if len(devices) != n_module * n_space * n_x:
+            dims = (n_module, n_space) + (() if n_space_x is None else (n_x,))
             raise ValueError(
-                f"mesh shape ({n_module}, {n_space}) != device count "
-                f"{len(devices)}"
-            )
+                f"mesh shape {dims} != device count {len(devices)}")
         self.shape = {"module": n_module, "space": n_space}
+        if n_space_x is not None:
+            self.shape["space_x"] = n_space_x
+        blocks = [tuple(devices[i * n_x:(i + 1) * n_x])
+                  for i in range(n_module * n_space)]
+        if n_space_x is None:
+            blocks = [blk[0] for blk in blocks]
         self.devices = tuple(
-            tuple(devices[mi * n_space:(mi + 1) * n_space])
+            tuple(blocks[mi * n_space:(mi + 1) * n_space])
             for mi in range(n_module)
         )
 
     @property
     def first_device(self):
         """where the solver keeps the whole state between years"""
-        return self.devices[0][0]
+        dev = self.devices[0][0]
+        return dev[0] if isinstance(dev, tuple) else dev
 
     def __repr__(self):
-        return (f"Mesh(module={self.shape['module']}, "
-                f"space={self.shape['space']}, devices={self.devices})")
+        axes = ", ".join(f"{name}={size}" for name, size in self.shape.items())
+        return f"Mesh({axes}, devices={self.devices})"
 
 
-def make_mesh(n_module=1, n_space=None, devices=None):
-    """build a (module, space) mesh over `devices` (names or torch.devices,
-    repeats allowed); devices=None takes every visible CUDA device and
-    raises without one -- the CPU is used only when named"""
+def make_mesh(n_module=1, n_space=None, devices=None, n_space_x=None):
+    """build a (module, space[, space_x]) mesh over `devices` (names or
+    torch.devices, repeats allowed); devices=None takes every visible CUDA
+    device and raises without one -- the CPU is used only when named"""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -73,8 +84,8 @@ def make_mesh(n_module=1, n_space=None, devices=None):
                    for i in range(torch.cuda.device_count())]
     devices = [resolve_device(dev) for dev in devices]
     if n_space is None:
-        n_space = len(devices) // n_module
-    return Mesh(devices, n_module, n_space)
+        n_space = len(devices) // (n_module * (n_space_x or 1))
+    return Mesh(devices, n_module, n_space, n_space_x)
 
 
 def mesh_devices(device, n_shards, shards_per_device=1):
@@ -124,3 +135,38 @@ def gather_state(mesh, blocks, device=None):
     rows = [torch.cat([blk.to(device) for blk in row], dim=-1)
             for row in blocks]
     return torch.cat(rows, dim=0)
+
+
+def grid_devices(mesh):
+    """devices[sy][sx] of a 3D grid's latitude x longitude blocks: the
+    mesh's first module row (the 3D years replicate over 'module'), one
+    longitude block when it has no space_x axis"""
+    row = mesh.devices[0]
+    if "space_x" in mesh.shape:
+        return [list(blocks) for blocks in row]
+    return [[dev] for dev in row]
+
+
+def shard_grid(mesh, x):
+    """split a (..., nlat, nlon) tensor into blocks[sy][sx] of shape (...,
+    nlat / n_space, nlon / n_space_x) on grid_devices(mesh)[sy][sx],
+    contiguous copies that never alias x"""
+    devs = grid_devices(mesh)
+    n_y, n_x = len(devs), len(devs[0])
+    nlat, nlon = x.shape[-2:]
+    if nlat % n_y or nlon % n_x:
+        raise ValueError(f"grid ({nlat}, {nlon}) does not split over the "
+                         f"mesh's ({n_y}, {n_x}) blocks")
+    nl, nx = nlat // n_y, nlon // n_x
+    return [[x[..., sy * nl:(sy + 1) * nl, sx * nx:(sx + 1) * nx]
+             .to(devs[sy][sx], copy=True).contiguous() for sx in range(n_x)]
+            for sy in range(n_y)]
+
+
+def gather_grid(mesh, blocks, device=None):
+    """join shard_grid's blocks into one tensor on `device` (by default the
+    mesh's first device)"""
+    device = mesh.first_device if device is None else device
+    rows = [torch.cat([blk.to(device) for blk in row], dim=-1)
+            for row in blocks]
+    return torch.cat(rows, dim=-2)

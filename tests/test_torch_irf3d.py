@@ -1,7 +1,11 @@
 """the 3D slice as a whole: the port's ShardedTransport3dKernel against the
 JAX package's on a 1-CPU mesh (its solver hooks in float64, a float64
 Newton-Krylov spin-up, float32 F against the JAX kernel B4 in interpret
-mode), and the port's irf3d_spinup entry point on the CPU"""
+mode), and the port's irf3d_spinup entry point on the CPU on one shard,
+2 shards and 2 x 2 shards"""
+
+import contextlib
+import io
 
 import numpy as np
 import pytest
@@ -160,23 +164,45 @@ def test_f32_fcn_matches_jax_b4():
 
 
 def test_more_than_one_device_raises():
+    """several devices are a mesh's (parallel/mesh.py), not a device list's;
+    a mesh that does not split the grid is refused"""
     circ, _ = _setup()
-    with pytest.raises(NotImplementedError, match="A5.3"):
+    with pytest.raises(ValueError, match="mesh="):
         ShardedTransport3dKernel(circ, DYE, N_STEPS, device=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A5.3"):
-        irf3d_spinup.main(["4", "8", "6", "2", "0", "--device", "cpu"])
+    with pytest.raises(ValueError, match="does not split"):
+        irf3d_spinup.main(["4", "8", "6", "3", "0", "--device", "cpu"])
 
 
-def test_cli_spins_up_on_cpu(capsys):
-    results = irf3d_spinup.main(["4", "8", "6", "1", "0", "--device", "cpu"])
+@pytest.fixture(scope="module")
+def cli_results():
+    """the CLI's two spin-ups and its printout on one shard, 2 shards and
+    2 x 2 shards"""
+    out = {}
+    for shards in ("1", "2", "2x2"):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            results = irf3d_spinup.main(["4", "8", "6", shards, "0",
+                                         "--device", "cpu"])
+        out[shards] = (results, printed.getvalue())
+    return out
+
+
+@pytest.mark.parametrize("shards", ["1", "2", "2x2"])
+def test_cli_spins_up_on_cpu(cli_results, shards):
+    """N and NYxNX shards (examples/irf3d_spinup.py:59-87); the meshes'
+    float32 solutions agree with one shard's"""
+    results, printed = cli_results[shards]
     assert len(results) == 2
-    for kernel, x, fcn, info in results:
+    assert "DIC14/DIC ratio" in printed
+    for (kernel, x, fcn, info), (_, x1, _, _) in zip(results,
+                                                     cli_results["1"][0]):
         assert x.device == CPU and x.dtype == torch.float32
         assert not kernel.use_kernel
+        assert (kernel.mesh is None) == (shards == "1")
         assert torch.isfinite(x).all() and torch.isfinite(fcn).all()
         rel = info["fcn_norm"] / info["x_norm"]
         assert (rel < irf3d_spinup.SOLVER["newton_rel_tol"]).all()
-    assert "DIC14/DIC ratio" in capsys.readouterr().out
+        assert float((x - x1).abs().max()) <= 1e-5 * float(x1.abs().max())
 
 
 def test_cli_cuda_without_card_raises(monkeypatch):

@@ -1,7 +1,7 @@
 """the CUDA kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu,
-csrc/transport3d_year.cu, csrc/transport3d_stream.cu, csrc/iage_block.cu)
-against their plain PyTorch versions; need an NVIDIA Hopper card and nvcc,
-and skip without a card
+csrc/transport3d_year.cu, csrc/transport3d_stream.cu, csrc/iage_block.cu,
+csrc/transport3d_sweep.cu) against their plain PyTorch versions; need an
+NVIDIA Hopper card and nvcc, and skip without a card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
 """
@@ -23,11 +23,14 @@ from newton_krylov_ooc_tpu_torch.ops import (
     imex_cuda,
     transport3d_cuda,
     transport3d_stream_cuda,
+    transport3d_sweep_cuda,
 )
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel import mesh as port_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
+    build_sharded_transport3d_year,
+    build_sharded_transport3d_year_stream,
     family_year_inputs,
 )
 from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
@@ -461,3 +464,133 @@ def test_sharded_iage_kernel_runs_b3(cuda_device):
     torch.cuda.synchronize()
     # 17 blocks and a remainder, on each of two shards, for each year
     assert imex_block_cuda.iage_block_launches - before == 2 * 2 * 18
+
+
+# B6's cases: upwind3 with dense and factored rates, the float32 stencil,
+# and a seasonal circulation with the surface coupling (k = 1 only)
+SWEEP_CASES = ("dense", "factored", "stencil", "seasonal_coupled")
+
+
+def _sweep_years(case, n_space, k, device, shape=(4, 32, 40)):
+    """(kernel year on n_space shards of the card, the same year through
+    stream_sweep_plain, y0, mask): a grid whose 40 longitudes take a ragged
+    tile, masked columns, a nonzero vertical transport"""
+    nz, nlat, nlon = shape
+    mask = np.ones(shape, np.int32)
+    mask[:, 3, 2] = 0
+    mask[2:, 17, 33] = 0
+    seasonal = case == "seasonal_coupled"
+    circ = synthetic.gen_circulation(nz, nlat, nlon, mask=mask,
+                                     n_seasons=4 if seasonal else None)
+    rng = np.random.default_rng(41)
+    circ["WTT"] = rng.uniform(-2.0e9, 2.0e9, circ["WTT"].shape)
+    n_steps = 2 * max(240, -(-synthetic.stable_steps_per_year(circ) // 2))
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(
+        circ, ABIO_SPECS if seasonal else FAMILY_SPECS)
+    wet = (mask > 0).astype(np.float64)
+    if case in ("dense", "stencil"):
+        diag = -rng.uniform(0.0, 1.0e-7, diag.shape) * wet.reshape(nz, -1)
+        src = rng.uniform(0.0, 1.0e-8, src.shape) * wet.reshape(nz, -1)
+    kwargs = dict(block_rows=8, steps_per_sweep=k, couple=couple,
+                  stencil=case == "stencil")
+    if case == "factored":
+        kwargs.update(recip_area=1.0 / circ["TAREA"], recip_dz=1.0 / circ["dz"])
+    args = (coef, kv, dz_r, diag, src, (0.0, transport3d_cuda.SEC_PER_YEAR),
+            n_steps)
+    mesh = port_mesh.make_mesh(1, n_space, devices=[device] * n_space)
+    year_k = build_sharded_transport3d_year_stream(mesh, *args, **kwargs)
+    year_p = build_sharded_transport3d_year_stream(mesh, *args, **kwargs,
+                                                   plain=True)
+    y0 = torch.as_tensor(rng.uniform(0.0, 1.0, (diag.shape[0],) + shape)
+                         * wet, dtype=torch.float32)
+    return year_k, year_p, y0, mask
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n_space", [1, 2, 4])
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_sweep_year_kernel_matches_plain(cuda_device, case, n_space, k):
+    """B6's sharded year on 1, 2 and 4 shards of the card against the same
+    year through the plain sweep; a halo one row short would show here,
+    at k = 2 on shards with neighbours"""
+    if case == "seasonal_coupled" and k != 1:
+        pytest.skip("a seasonal year streams one step a sweep")
+    year_k, year_p, y0, mask = _sweep_years(case, n_space, k, cuda_device)
+    y0 = y0.to(cuda_device)
+    assert year_k.stream_diag == (case in ("dense", "stencil"))
+    before = transport3d_sweep_cuda.transport3d_sweep_launches
+    y_k = year_k(y0)
+    torch.cuda.synchronize()
+    assert (transport3d_sweep_cuda.transport3d_sweep_launches - before
+            == n_space * year_k.n_sweeps)
+    y_p = year_p(y0)
+    assert y_k.device == cuda_device and torch.isfinite(y_k).all()
+    scale = float(y_p.abs().max())
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+    assert float((y_k - y0).abs().max()) / scale > 1e-3  # y moved
+    land = torch.as_tensor(mask == 0, device=cuda_device)
+    assert float(y_k[:, land].abs().max()) == 0.0  # land stays dry
+
+
+def test_sweep_kernel_on_one_shard_is_b5(cuda_device):
+    """one shard at k = 1 repeats B5's arithmetic on the same inputs"""
+    nz, nlat, nlon = 6, 32, 40
+    circ = synthetic.gen_circulation(nz, nlat, nlon)
+    coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
+    args = (coef, kv, dz_r, None, None, (0.0, transport3d_cuda.SEC_PER_YEAR),
+            480)
+    factors = {"recip_area": 1.0 / circ["TAREA"], "recip_dz": 1.0 / circ["dz"],
+               "t_dim": 1}
+    y0 = torch.as_tensor(np.random.default_rng(43).uniform(
+        0.0, 1.0, (1, nz, nlat, nlon)) * (circ["mask"] > 0),
+        dtype=torch.float32, device=cuda_device)
+    y5 = transport3d_stream_cuda.build_transport3d_year_stream(
+        *args, **factors, device=cuda_device)(y0)
+    y6 = build_sharded_transport3d_year_stream(
+        port_mesh.make_mesh(1, 1, devices=[cuda_device]), *args,
+        block_rows=8, **factors)(y0)
+    assert float((y6 - y5).abs().max()) <= 1e-6 * float(y5.abs().max())
+
+
+def test_sweep_kernel_rejects_what_it_cannot_take(cuda_device):
+    """wrong device, dtype, shape or steps raise before any launch"""
+    year, _, y0, _ = _sweep_years("dense", 2, 1, cuda_device)
+    sweep = year.sweeps[0]
+    shape = (y0.shape[0], y0.shape[1], y0.shape[2] // 2 + 2 * year.halo,
+             y0.shape[3])
+    y, c, spare = (torch.zeros(shape, device=cuda_device) for _ in range(3))
+    before = transport3d_sweep_cuda.transport3d_sweep_launches
+    for bad in (y.cpu(), y.double(), y[:, :, 1:], y.transpose(2, 3)
+                .contiguous().transpose(2, 3)):
+        with pytest.raises(ValueError):
+            sweep(bad, c, spare, 0)
+    with pytest.raises(ValueError, match="outside"):
+        sweep(y, c, spare, year.n_sweeps * 10)
+    with pytest.raises(ValueError):
+        year(y0.numpy())
+    assert transport3d_sweep_cuda.transport3d_sweep_launches == before
+
+
+@pytest.mark.parametrize("n_y, n_x", [(4, None), (2, 2)])
+def test_per_step_sharded_year_replays_on_the_card(cuda_device, n_y, n_x):
+    """the per-step sharded year on shards of the card (one step captured
+    in a CUDA graph and replayed) against the same year on CPU shards, in
+    float64, seasonal and coupled"""
+    nz, nlat, nlon = 4, 16, 12
+    circ = synthetic.gen_circulation(nz, nlat, nlon, n_seasons=4)
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, ABIO_SPECS)
+    args = (coef, kv, dz_r, diag, src, (0.0, transport3d_cuda.SEC_PER_YEAR),
+            synthetic.stable_steps_per_year(circ), couple)
+    y0 = torch.as_tensor(np.random.default_rng(47).uniform(
+        0.0, 1.0, (2, nz, nlat, nlon)) * (circ["mask"] > 0))
+    n = n_y * (n_x or 1)
+    card = build_sharded_transport3d_year(port_mesh.make_mesh(
+        1, n_y, devices=[cuda_device] * n, n_space_x=n_x), *args)
+    cpu = build_sharded_transport3d_year(port_mesh.make_mesh(
+        1, n_y, devices=["cpu"] * n, n_space_x=n_x), *args)
+    y_card = card(y0.to(cuda_device))
+    y_cpu = cpu(y0)
+    assert y_card.device == cuda_device and y_card.dtype == torch.float64
+    scale = float(y_cpu.abs().max())
+    assert float((y_card.cpu() - y_cpu).abs().max()) <= 1e-12 * scale
+    assert float((y_cpu - y0).abs().max()) > 1e-3 * scale  # the year moved y
