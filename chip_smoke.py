@@ -7,7 +7,10 @@ irf_offline in-core spin-up at POP gx3 extents (60 x 116 x 100, 2000 steps
 a year, kernel transport3d_year), the streaming 3D year at POP gx1 extents
 (60 x 384 x 320, 2000 steps a year, kernel transport3d_stream), and the
 sharded py_driver_2d module-family spin-up on a (module, space) mesh
-(kernel iage_block, the IMEX step block of the blocked sharded year).
+(kernel iage_block, the IMEX step block of the blocked sharded year), the
+blocked latitude-sharded 3D year (kernel transport3d_block) at gx1's
+horizontal extent and at full gx1 depth, and the first layout of the iage
+year (kernel iage_year_v1, iage_year's PCR variant).
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -57,7 +60,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     mesh): the full year timed; over its first tenth against the plain f32
     blocked year and the plain f64 per-step year, and timed beside the
     plain f32 tenth (its JSON entry's times); the full year on a (1, 4)
-    mesh of the one card against the (1, 1) year;
+    mesh of the one card against the (1, 1) year; the source-free tenth
+    from seeded noise (a stand-in for a Krylov direction) against the same
+    two plain years, reported, not gated (Thomas at 256 levels);
  10 the sharded spin-up through cli/sharded_spinup.py's entry function at
     the example's defaults (4 modules, 24 x 48, 2920 steps, float32 on
     iage_block) on a (1, 1) mesh and on 4 shards of the one card, checked
@@ -79,10 +84,26 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     coupled pair) with 1, 4 and 2x2 shards on the card (one shard runs
     transport3d_year; more run the per-step sharded year, plain PyTorch
     as in the JAX package), checked for convergence, against a float64
-    plain evaluation of F at each solution, and against each other.
+    plain evaluation of F at each solution, and against each other;
+ 13 transport3d_block in the blocked sharded 3D year: (a) the JAX slow
+    test's coupled dic/dic14 pair at gx1's horizontal extent (3 x 384 x
+    320, 368 steps, blocks of 4) on 1 and 8 shards of the card, timed
+    (the 1-shard year and its plain f32 blocked year are its JSON entry's
+    times), each within 2e-5 of the plain f64 year, 8 shards within 1e-6
+    of 1, land zero, and within 1e-4 of the same year through
+    transport3d_sweep; (b) phase 8's steady upwind3 gx1 year at full depth
+    on 1 shard at k = 1 and on 4 shards of the card at k = 2, timed over
+    2000 steps beside transport3d_stream and transport3d_sweep, and held
+    at 400 steps against phase 8's plain f32 year within 5e-5.  Its timed
+    years are the path whose launches the kernel's JSON entry counts;
+ 14 iage_year_v1 (B1's PCR variant) at phase 2's size, on its F and JVP
+    years, timed beside iage_year, each within 5e-5 of the plain f32 year
+    and 1e-4 of the f64 year over the first tenth (the F route's tenth its
+    JSON entry's times); the timed full years are its path.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
-year, on 4 shards for transport3d_sweep, B4's full gx3 year), with the least time the card could take for
+year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
+coupled year for transport3d_block), with the least time the card could take for
 that work (bound_ms, from the H100's published peaks) -- and, last, one
 JSON line naming the device.
 """
@@ -117,6 +138,7 @@ from newton_krylov_ooc_tpu_torch.ops import (
     compute,
     imex_block_cuda,
     imex_cuda,
+    transport3d_block_cuda,
     transport3d_cuda,
     transport3d_stream_cuda,
     transport3d_sweep_cuda,
@@ -125,6 +147,7 @@ from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel.mesh import make_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
+    build_sharded_transport3d_year_blocked,
     build_sharded_transport3d_year_stream,
     family_year_inputs,
 )
@@ -219,8 +242,29 @@ IRF3D_MESHES = (("1 shard", ["1"]),
                 ("4 shards", ["4", "--shards-per-device", "4"]),
                 ("2x2 shards", ["2x2", "--shards-per-device", "4"]))
 IRF3D_MESH_TOL = 1e-4  # the meshes' f32 solutions, relative to max|x|
-# phase 8's plain 400-step gx1 years, which phase 11 holds B6 against
+# phase 8's plain 400-step gx1 years, which phases 11 and 13 hold B6 and B7
+# against
 PLAIN_GX1 = {}
+# phase 13 (a): the JAX slow test's gx1-extent coupled family
+# (tests/test_sharded_transport3d.py:536-617): 3 levels of gx1's 384 x 320,
+# land at two columns, the dic/dic14 pair, 368 steps, blocks of 4, on 1
+# and 8 shards; its bounds
+BLOCK3D_GRID = (3, 384, 320)
+BLOCK3D_LAND = ((slice(None), 100, 37), (slice(1, None), 251, 200))
+BLOCK3D_STEPS = 368
+BLOCK3D_K = 4
+BLOCK3D_SHARDS = 8
+BLOCK3D_SPECS = [[
+    {"name": "dic", "sink_rate_per_year": 0.02,
+     "surf_restore_pv_cm_s": 2.0e-4, "surf_restore_target": 1.0,
+     "surf_flux_d": {"dic14": 1.5e-4}},
+    {"name": "dic14", "source_per_year": 1.0e-3},
+]]
+BLOCK3D_F64_TOL = 2e-5    # each mesh against the plain f64 year
+BLOCK3D_SHARD_TOL = 1e-6  # 8 shards against 1
+BLOCK3D_VS_B6 = 1e-4      # against the year through B6 (__graft_entry__.py)
+# phase 13 (b): gx1 at full depth, 1 shard at k = 1, 4 shards at k = 2
+GX1_BLOCK_MESHES = ((1, 1), (GX1_SHARDS, 2))
 
 
 def phase(num, title, **numbers):
@@ -258,6 +302,8 @@ def reset_counts():
     transport3d_stream_cuda.transport3d_stream_launches = 0
     imex_block_cuda.iage_block_launches = 0
     transport3d_sweep_cuda.transport3d_sweep_launches = 0
+    transport3d_block_cuda.transport3d_block_launches = 0
+    imex_cuda.iage_year_v1_launches = 0
 
 
 def kernel_timing(year, y0):
@@ -785,6 +831,19 @@ def stream_kernel_phase(device):
     return (launches, worst_abs, *timing)
 
 
+def plain_gx1(coef, kv, dz_r, y0):
+    """phase 8's plain f32 and f64 400-step gx1 years, computed here only
+    when phase 8 did not run"""
+    if not PLAIN_GX1:
+        for key, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            year = transport3d_stream_cuda.build_transport3d_year_stream_plain(
+                _to(coef, y0.device, dtype), kv, dz_r, None, None,
+                (0.0, transport3d_cuda.SEC_PER_YEAR), GX1_CHECK_STEPS,
+                t_dim=1)
+            PLAIN_GX1[key] = year(y0.to(dtype))
+    return PLAIN_GX1["f32"], PLAIN_GX1["f64"]
+
+
 def sweep_kernel_phase(device):
     """phase 11: transport3d_sweep at gx1 on phase 8's steady upwind3
     inputs; returns (launches on its path, max abs error, 4-shard kernel
@@ -868,13 +927,8 @@ def sweep_kernel_phase(device):
     del year5, year1, year4, y_5, y_4
 
     # -- 400 steps on four shards against the plain sweeps and phase 8's
-    # plain f32 and f64 years (computed here only when phase 8 did not run)
-    if not PLAIN_GX1:
-        for dtype in (f32, f64):
-            PLAIN_GX1[{f32: "f32", f64: "f64"}[dtype]] = (
-                stream.build_transport3d_year_stream_plain(
-                    _to(coef, device, dtype), kv, dz_r, None, None, span,
-                    GX1_CHECK_STEPS, t_dim=1)(y0.to(dtype)))
+    # plain f32 and f64 years
+    plain_gx1(coef, kv, dz_r, y0)
     year_c = sharded(four, GX1_CHECK_STEPS)
     y_c, ms_c = kernel_timing_reps(year_c, y0, GX1_REPS)
     y_p, ms_p = timed(sharded(four, GX1_CHECK_STEPS, plain=True), y0)
@@ -901,7 +955,6 @@ def sweep_kernel_phase(device):
     if float((y_c * (1.0 - wet)).abs().max()) != 0.0:
         raise SystemExit("chip_smoke: transport3d_sweep wets land")
     timing = (ms_c, ms_p, bound_c, bound_c_by)
-    PLAIN_GX1.clear()
     del year_c, y_c, y_p, y_32, y_64
 
     # -- the stencil f32 year, and the 12-month seasonal coupled pair, on
@@ -1141,6 +1194,21 @@ def iage_block_phase(device):
     # four shards on the one card, 2000 / 4 = 500 columns each
     y_4, ms_4 = timed(build_sharded_year_blocked(four, *args, **blocked), y0)
     err_4 = rel_err(y_4, y_k, float(y_k.abs().max()))
+    # the source-free tenth from seeded noise, a stand-in for a Krylov
+    # direction: B3's Thomas columns against the plain years' PCR at 256
+    # levels (reported, not gated: ROADMAP C)
+    rough_args = (*short[:4], np.zeros_like(aging), *short[5:])
+    y_r = torch.as_tensor(np.random.default_rng(61).standard_normal(
+        (1, 2, nz, ny)), dtype=torch.float32, device=device)
+    y_rk = build_sharded_year_blocked(one, *rough_args, **blocked)(y_r)
+    y_rp = build_sharded_year_blocked_plain(one, *rough_args, **blocked)(y_r)
+    y_r64 = build_sharded_year(
+        one, ShardedYearData(depth, ypos, incore_spinup.MODELINFO, 1), diag,
+        np.zeros((1, 2, 1, 1)), *short[-2:])(y_r.double())
+    scale_r = float(y_r64.abs().max())
+    rough = {"rel_err_rough_f32_tenth": rel_err(y_rk, y_rp, scale_r),
+             "rel_err_rough_f64_tenth": rel_err(y_rk, y_r64, scale_r),
+             "rel_err_rough_plain_f32_vs_f64": rel_err(y_rp, y_r64, scale_r)}
     nx = ny + 4 * BIG_BLOCK_STEPS  # the (1, 1) window: 2 k halo columns a side
     bound_ms, bound_by = iage_bound(2, nz, nx, n_steps)
     bound_t, bound_t_by = iage_bound(2, nz, nx, short[-1])
@@ -1152,8 +1220,10 @@ def iage_block_phase(device):
           kernel_ms_tenth=ms_kt, plain_f32_ms_tenth=ms_pt,
           plain_f64_ms_tenth=ms_64, launches_per_year=launches_per_year,
           bound_ms_per_year=bound_ms, bound_ms_tenth=bound_t,
-          bound_by=bound_by, max_abs_y=scale)
-    finite = all(bool(torch.isfinite(arr).all()) for arr in (y_k, y_kt, y_4))
+          bound_by=bound_by, max_abs_y=scale, **rough,
+          rough_tol=F32_TOL, max_abs_y_rough=scale_r)
+    finite = all(bool(torch.isfinite(arr).all())
+                 for arr in (y_k, y_kt, y_4, y_rk))
     if not (finite and err_32 <= F32_TOL and err_64 <= F64_TOL
             and err_4 <= F32_TOL):
         raise SystemExit(
@@ -1214,11 +1284,234 @@ def sharded_solve_phase(device):
     return launches
 
 
+def block3d_plan(year):
+    """(j', tile rows, tile columns) of a blocked year's B7 launches: the
+    k-step blocks', then the remainder block's"""
+    (blks,) = year.blocks.values()
+    return [blk.plan for blk in blks if blk is not None]
+
+
+def block3d_kernel_phase(device):
+    """phase 13: transport3d_block in the blocked sharded 3D year; returns
+    (launches on its path, max abs error, 1-shard kernel ms, plain f32
+    blocked ms, bound ms, bounded by), the times of the coupled year"""
+    f32, f64 = torch.float32, torch.float64
+    span = (0.0, transport3d_cuda.SEC_PER_YEAR)
+    blk = transport3d_block_cuda
+
+    def mesh(n):
+        return make_mesh(1, n, devices=[device] * n)
+
+    # -- (a) the coupled pair at gx1's horizontal extent
+    nz, nlat, nlon = BLOCK3D_GRID
+    mask = np.ones(BLOCK3D_GRID, np.int32)
+    for cell in BLOCK3D_LAND:
+        mask[cell] = 0
+    circ = synthetic.gen_circulation(nz, nlat, nlon, mask=mask)
+    if synthetic.stable_steps_per_year(circ) > BLOCK3D_STEPS:
+        raise SystemExit("chip_smoke: 368 steps are past the explicit bound")
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ,
+                                                          BLOCK3D_SPECS)
+    wet = torch.as_tensor(mask > 0, dtype=f32, device=device)
+    y0 = wet * torch.as_tensor(np.random.default_rng(31).uniform(
+        0.0, 1.0, (2,) + BLOCK3D_GRID), dtype=f32, device=device)
+    args = (coef, kv, dz_r, diag, src, span, BLOCK3D_STEPS)
+    years = {n: build_sharded_transport3d_year_blocked(
+        mesh(n), *args, block_steps=BLOCK3D_K, couple=couple)
+        for n in (1, BLOCK3D_SHARDS)}
+    reset_counts()
+    outs, ms = {}, {}
+    for n, year in years.items():
+        outs[n], ms[n] = kernel_timing_reps(year, y0, GX1_REPS)
+    launches = blk.transport3d_block_launches
+    expected = (GX1_REPS + 1) * sum(year.launches for year in years.values())
+    y_32, ms_32 = timed(build_sharded_transport3d_year_blocked(
+        mesh(1), *args, block_steps=BLOCK3D_K, couple=couple, plain=True), y0)
+    y_64, ms_64 = timed(transport3d_cuda.build_transport3d_year_plain(
+        _to(coef, device, f64), kv, dz_r, diag, src, span, BLOCK3D_STEPS,
+        couple), y0.double())
+    y_6, ms_6 = timed(build_sharded_transport3d_year_stream(
+        mesh(1), *args, couple=couple), y0)
+    scale = float(y_64.abs().max())
+    errs = {f"rel_err_f64_{n}shard": rel_err(outs[n], y_64, scale)
+            for n in outs}
+    errs.update(
+        rel_err_plain_f32=rel_err(outs[1], y_32, scale),
+        rel_err_8_vs_1=rel_err(outs[BLOCK3D_SHARDS], outs[1], scale),
+        rel_err_vs_b6=rel_err(outs[1], y_6, scale))
+    bound_ms, bound_by = transport3d_bound(coef, kv, 2, BLOCK3D_STEPS)
+    year8 = years[BLOCK3D_SHARDS]
+    phase(13, f"transport3d_block (a) coupled pair ({nz}x{nlat}x{nlon}, "
+              f"{BLOCK3D_STEPS} steps, T=2, blocks of {BLOCK3D_K})",
+          **errs, kernel_ms_per_year_1shard=ms[1],
+          kernel_ms_per_year_8shards=ms[BLOCK3D_SHARDS],
+          plain_f32_blocked_ms_per_year=ms_32, plain_f64_ms_per_year=ms_64,
+          b6_ms_per_year=ms_6, launches=launches, expected_launches=expected,
+          plan_1shard=block3d_plan(years[1]),
+          plan_8shards=block3d_plan(year8),
+          smem_bytes={n: year.smem_bytes for n, year in years.items()},
+          blocks_per_year=year8.n_blocks,
+          halo_copies_per_year_8shards=year8.halo_copies,
+          halo_mbytes_per_year_8shards=year8.halo_bytes / 1e6,
+          bound_ms_per_year=bound_ms, bound_by=bound_by, max_abs_y=scale)
+    for n, y in outs.items():
+        if not torch.isfinite(y).all():
+            raise SystemExit(f"chip_smoke: transport3d_block ({n} shards) is "
+                             f"not finite")
+        if float((y * (1.0 - wet)).abs().max()) != 0.0:
+            raise SystemExit(f"chip_smoke: transport3d_block wets land ({n} "
+                             f"shards)")
+    if not (max(errs[f"rel_err_f64_{n}shard"] for n in outs)
+            <= BLOCK3D_F64_TOL and errs["rel_err_plain_f32"] <= F32_TOL
+            and errs["rel_err_8_vs_1"] <= BLOCK3D_SHARD_TOL
+            and errs["rel_err_vs_b6"] <= BLOCK3D_VS_B6):
+        raise SystemExit(f"chip_smoke: transport3d_block disagrees: {errs}")
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {launches} transport3d_block launches "
+                         f"for {expected} expected")
+    worst_abs = float((outs[1] - y_32).abs().max())
+    timing = (ms[1], ms_32, bound_ms, bound_by)
+    del years, outs, y_32, y_64, y_6
+
+    # -- (b) phase 8's steady upwind3 year at full gx1 depth, T = 1
+    nz, nlat, nlon = GX1
+    circ = synthetic.gen_circulation(*GX1)
+    n_steps = max(GX1_MIN_STEPS, synthetic.stable_steps_per_year(circ))
+    coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
+    wet = torch.as_tensor(circ["mask"] > 0, dtype=f32, device=device)
+    y0 = wet * torch.as_tensor(np.random.default_rng(0).uniform(
+        0.0, 1.0, (1,) + GX1), dtype=f32, device=device)
+    zeros = np.zeros((1, nz, nlat * nlon))
+    shed = {"recip_area": 1.0 / circ["TAREA"], "recip_dz": 1.0 / circ["dz"],
+            "t_dim": 1}
+
+    def blocked(n, k, steps):
+        return build_sharded_transport3d_year_blocked(
+            mesh(n), coef, kv, dz_r, zeros, zeros, span, steps,
+            block_steps=k)
+
+    years = {nk: blocked(*nk, n_steps) for nk in GX1_BLOCK_MESHES}
+    year5 = transport3d_stream_cuda.build_transport3d_year_stream(
+        coef, kv, dz_r, None, None, span, n_steps, **shed, device=device)
+    year6 = build_sharded_transport3d_year_stream(
+        mesh(GX1_SHARDS), coef, kv, dz_r, None, None, span, n_steps,
+        steps_per_sweep=2, **shed)
+    reset_counts()
+    ms_b7, outs = {}, {}
+    for nk, year in years.items():
+        outs[nk], ms_b7[nk] = timed(year, y0)
+    count = blk.transport3d_block_launches
+    launches += count
+    _, ms5 = kernel_timing_reps(year5, y0, 1)
+    y_6, ms6 = timed(year6, y0)
+    scale = float(outs[(1, 1)].abs().max())
+    err_b5 = rel_err(outs[(1, 1)], year5(y0), scale)
+    y_32, y_64 = plain_gx1(coef, kv, dz_r, y0)
+    scale_c = float(y_64.abs().max())
+    errs = {}
+    for nk in GX1_BLOCK_MESHES:
+        y_c = blocked(*nk, GX1_CHECK_STEPS)(y0)
+        errs[f"rel_err_f32_400_steps_{nk[0]}shard_k{nk[1]}"] = rel_err(
+            y_c, y_32, scale_c)
+        worst_abs = max(worst_abs, float((y_c - y_32).abs().max()))
+        if float((y_c * (1.0 - wet)).abs().max()) != 0.0:
+            raise SystemExit("chip_smoke: transport3d_block wets land at gx1")
+    bound_g, bound_g_by = transport3d_bound(coef, kv, 1, n_steps)
+    phase(13, f"transport3d_block (b) gx1 ({nz}x{nlat}x{nlon}, {n_steps} "
+              f"steps, T=1, upwind3)",
+          **{f"kernel_ms_per_year_{n}shard_k{k}": ms_b7[(n, k)]
+             for n, k in GX1_BLOCK_MESHES},
+          b5_ms_per_year=ms5, b6_ms_per_year_4shards_k2=ms6,
+          rel_err_1shard_vs_b5=err_b5, **errs, tol=F32_TOL, launches=count,
+          plan={f"{n}shard_k{k}": block3d_plan(years[(n, k)])
+                for n, k in GX1_BLOCK_MESHES},
+          smem_bytes={f"{n}shard_k{k}": years[(n, k)].smem_bytes
+                      for n, k in GX1_BLOCK_MESHES},
+          halo_copies_per_year={f"{n}shard_k{k}": years[(n, k)].halo_copies
+                                for n, k in GX1_BLOCK_MESHES},
+          bound_ms_per_year=bound_g, bound_by=bound_g_by, max_abs_y=scale)
+    if not (all(torch.isfinite(y).all() for y in outs.values())
+            and max(errs.values()) <= F32_TOL and err_b5 <= F32_TOL):
+        raise SystemExit(f"chip_smoke: transport3d_block at gx1 disagrees: "
+                         f"{errs}, {err_b5:.3e} from B5")
+    if count == 0:
+        raise SystemExit("chip_smoke: no transport3d_block launch at gx1")
+    PLAIN_GX1.clear()
+    phase(13, "transport3d_block path", launches=launches)
+    return (launches, worst_abs, *timing)
+
+
+def iage_v1_phase(depth, ypos, device):
+    """phase 14: iage_year_v1 at phase 2's size, F and JVP, timed beside
+    iage_year; returns (launches on its path, max abs error, kernel ms,
+    plain f32 ms) over the F route's tenth"""
+    grids = {
+        dtype: physics.make_grid(depth, ypos, incore_spinup.MODELINFO,
+                                 device=device, dtype=dtype)
+        for dtype in (torch.float32, torch.float64)
+    }
+    probe = IageKernel(depth, ypos, incore_spinup.MODELINFO, device=device,
+                       n_steps=N_STEPS)
+    diag = probe._vert_diag
+    span = (0.0, physics.SEC_PER_YEAR)
+    rng = np.random.default_rng(0)
+    inputs = {
+        "F": (np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR),
+              probe.init_iterate().cpu().numpy()),
+        "JVP": (np.zeros((2, 1, 1)), rng.standard_normal((2, NZ, NY))),
+    }
+    args = {route: {dtype: (grids[dtype], diag, source, span, N_STEPS)
+                    for dtype in (torch.float32, torch.float64)}
+            for route, (source, _) in inputs.items()}
+    y0s = {route: torch.as_tensor(y0, dtype=torch.float32, device=device)
+           for route, (_, y0) in inputs.items()}
+    # the path: each route's full year on B1v1, in turns with B1
+    ms_v1, ms_b1 = {}, {}
+    reset_counts()
+    for route, y0 in y0s.items():
+        a32 = args[route][torch.float32]
+        _, ms_v1[route] = kernel_timing(
+            imex_cuda.build_iage_year_v1(*a32, device=device), y0)
+        _, ms_b1[route] = kernel_timing(
+            imex_cuda.build_iage_year(*a32, device=device), y0)
+    launches = imex_cuda.iage_year_v1_launches
+    if launches != 2 * (REPS + 1):
+        raise SystemExit(f"chip_smoke: {launches} iage_year_v1 launches for "
+                         f"{2 * (REPS + 1)} years")
+    worst_abs, tenth_ms = 0.0, {}
+    for route, y0 in y0s.items():
+        a32, a64 = args[route][torch.float32], args[route][torch.float64]
+        y_s, ms_s = kernel_timing(imex_cuda.build_iage_year_v1(
+            *tenth(a32), device=device), y0)
+        y_b1 = imex_cuda.build_iage_year(*tenth(a32), device=device)(y0)
+        ref, ms_32 = timed(imex_cuda.build_iage_year_plain(*tenth(a32)), y0)
+        y_64, _ = timed(imex_cuda.build_iage_year_plain(*tenth(a64)),
+                        y0.double())
+        scale = float(ref.abs().max())
+        err_32 = rel_err(y_s, ref, scale)
+        err_64 = rel_err(y_s, y_64, float(y_64.abs().max()))
+        phase(14, f"iage_year_v1 vs plain ({route})",
+              rel_err_f32_tenth=err_32, rel_err_f64_tenth=err_64,
+              rel_err_vs_b1_tenth=rel_err(y_s, y_b1, scale),
+              compared_steps=CHECK_STEPS, kernel_ms_per_year=ms_v1[route],
+              b1_ms_per_year=ms_b1[route], kernel_ms_tenth=ms_s,
+              plain_f32_ms_tenth=ms_32, launches=launches, max_abs_y=scale)
+        if not (torch.isfinite(y_s).all() and err_32 <= F32_TOL
+                and err_64 <= F64_TOL):
+            raise SystemExit(
+                f"chip_smoke: iage_year_v1 disagrees with the plain year "
+                f"({route}): {err_32:.3e} vs f32 (bound {F32_TOL}), "
+                f"{err_64:.3e} vs f64 (bound {F64_TOL})")
+        worst_abs = max(worst_abs, float((y_s - ref).abs().max()))
+        tenth_ms[route] = (ms_s, ms_32)
+    return (launches, worst_abs, *tenth_ms["F"])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(13),
-                        default=list(range(13)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(15),
+                        default=list(range(15)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -1266,6 +1559,10 @@ def main(argv=None):
         # 11, 12: the sweep kernel at gx1, then the sharded 3D spin-up
         11: lambda: sweep_kernel_phase(device),
         12: lambda: irf3d_sharded_solve_phase(device),
+        # 13: the block kernel in the blocked sharded 3D year
+        13: lambda: block3d_kernel_phase(device),
+        # 14: the iage year's PCR variant
+        14: lambda: iage_v1_phase(depth, ypos, device),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -1274,7 +1571,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(13)):
+    if phases != set(range(15)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0
@@ -1291,6 +1588,9 @@ def main(argv=None):
     block_launches = results[10]
     (sweep_launches, sweep_abs, sweep_ms, sweep_plain_ms, sweep_bound_ms,
      sweep_by) = results[11]
+    (b7_launches, b7_abs, b7_ms, b7_plain_ms, b7_bound_ms,
+     b7_by) = results[13]
+    v1_launches, v1_abs, v1_ms, v1_plain_ms = results[14]
 
     # no single PyTorch call computes an IMEX year: library_ms is null
     # B1's and B2's times are over the first tenth of the year
@@ -1367,6 +1667,30 @@ def main(argv=None):
         "plain_ms": sweep_plain_ms,
         "bound_ms": sweep_bound_ms,
         "bound_by": sweep_by,
+        "library_ms": None,
+    }, {
+        "name": "transport3d_block",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/transport3d_block.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/transport3d_block_pallas.py:71",
+        "launches": b7_launches,
+        "max_abs_err": b7_abs,
+        "ms": b7_ms,
+        "plain_ms": b7_plain_ms,
+        "bound_ms": b7_bound_ms,
+        "bound_by": b7_by,
+        "library_ms": None,
+    }, {
+        "name": "iage_year_v1",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/iage_year.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/imex_pallas.py:96",
+        "launches": v1_launches,
+        "max_abs_err": v1_abs,
+        "ms": v1_ms,
+        "plain_ms": v1_plain_ms,
+        "bound_ms": iage_bound_ms,
+        "bound_by": iage_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

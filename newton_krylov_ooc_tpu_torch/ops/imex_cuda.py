@@ -11,6 +11,12 @@ year is its own exact tangent map, so IageKernel's JVP runs through it too.
 
 `build_iage_year_plain` returns the same year over ops/imex.py::imex_year.
 
+`build_iage_year_v1` is the port of imex_pallas.py::build_iage_year_pallas,
+the first layout of the same year: the same arguments and numerics, the
+whole year in one launch of B1v1, csrc/iage_year.cu's PCR variant, whose
+CN solves are divide-form PCR as the JAX kernel's.  Its plain version is
+build_iage_year_plain, whose ops/tridiag.py::pcr_solve is divide-form PCR.
+
 `build_phosphorus_year` is the port of
 newton_krylov_ooc_tpu/ops/imex_pallas.py::build_phosphorus_year_pallas:
 (grid, params, light_lim, t_span, n_steps) -> year(y0) with y0 the
@@ -29,8 +35,9 @@ its sources and flags, into a shared library with a plain C interface that
 ctypes loads.  The build knows every kernel source of the port (SOURCES),
 the 3D transport years of ops/transport3d_cuda.py and
 ops/transport3d_stream_cuda.py, the IMEX step block of
-ops/imex_block_cuda.py and the stream sweep of
-ops/transport3d_sweep_cuda.py included, so one build_libraries() call
+ops/imex_block_cuda.py, the stream sweep of
+ops/transport3d_sweep_cuda.py and the 3D step block of
+ops/transport3d_block_cuda.py included, so one build_libraries() call
 compiles them all at once.
 """
 
@@ -60,6 +67,7 @@ SOURCES = {
     "transport3d_stream": "transport3d_stream.cu",
     "iage_block": "iage_block.cu",
     "transport3d_sweep": "transport3d_sweep.cu",
+    "transport3d_block": "transport3d_block.cu",
 }
 INCLUDES = {
     "iage_year": ("imex_common.cuh",),
@@ -70,6 +78,7 @@ INCLUDES = {
     "iage_block": ("imex_common.cuh",),
     "transport3d_sweep": ("transport3d_stream_passes.cuh",
                           "transport3d_common.cuh"),
+    "transport3d_block": ("transport3d_common.cuh",),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -83,6 +92,7 @@ _PHOS_TRACERS = 3  # po4, dop, pop
 # launches of each CUDA year kernel in this process (one per year(y0) call
 # on a CUDA tensor); callers reset them to 0 to count a run's launches
 iage_year_launches = 0
+iage_year_v1_launches = 0
 phosphorus_year_launches = 0
 
 _libs = {}
@@ -167,14 +177,19 @@ def load_library(name, signatures):
 def _library(name):
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     shape = [c_int] * _SHAPE_ARGS[name]
-    return load_library(name, {
+    # y0, out, fields, shape, n_steps, t0, dt, stream
+    launch = ([c_ptr] * 3 + shape + [c_int] + [ctypes.c_float] * 2 + [c_ptr],
+              c_int)
+    signatures = {
         "fields_len": (shape, ctypes.c_long),
         "smem_bytes": ([c_int] * 2, ctypes.c_long),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
-        # y0, out, fields, shape, n_steps, t0, dt, stream
-        "launch": ([c_ptr] * 3 + shape + [c_int]
-                   + [ctypes.c_float] * 2 + [c_ptr], c_int),
-    })
+        "launch": launch,
+    }
+    if name == "iage_year":  # B1v1, the PCR variant, in the same library
+        signatures.update(v1_smem_bytes=([c_int] * 2, ctypes.c_long),
+                          v1_launch=launch)
+    return load_library(name, signatures)
 
 
 def cuda_error(lib, name, err, what):
@@ -182,10 +197,11 @@ def cuda_error(lib, name, err, what):
     return RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def _check_smem(lib, name, nz, ny, device, what):
+def _check_smem(lib, name, nz, ny, device, what, variant=""):
     """raise ValueError when kernel `name`'s shared-memory plan at nz x ny
-    (counted by its <name>_smem_bytes) exceeds the card's opt-in limit"""
-    smem = getattr(lib, f"{name}_smem_bytes")(nz, ny)
+    (counted by its <name>_<variant>smem_bytes) exceeds the card's opt-in
+    limit"""
+    smem = getattr(lib, f"{name}_{variant}smem_bytes")(nz, ny)
     limit = ctypes.c_int(0)
     err = getattr(lib, f"{name}_smem_optin")(device.index, ctypes.byref(limit))
     if err:
@@ -326,6 +342,20 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
     tangent year).  Raises ValueError when the shared-memory plan of one
     channel exceeds what one block may use on the card.
     """
+    return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "")
+
+
+def build_iage_year_v1(grid, vert_diag, source, t_span, n_steps, *, device):
+    """year(y0: (T, nz, ny) float32) -> y(t_end), build_iage_year_pallas's
+    year: the whole year in one launch of B1v1 (its CN solves by PCR over
+    the block's nz x ny threads) on a CUDA `device`; on the CPU, the plain
+    version in float32, whose column solves are divide-form PCR.  Arguments
+    and refusals as build_iage_year's."""
+    return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "v1_")
+
+
+def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant):
+    """the iage year on B1 (variant "") or B1v1 (variant "v1_")"""
     device = resolve_device(device)
     if device.type == "cpu":
         return build_iage_year_plain(
@@ -340,24 +370,30 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
     lib = _library("iage_year")
     if lib.iage_year_fields_len(t_dim, nz, ny) != fields.numel():
         raise RuntimeError("packed constants disagree with csrc/iage_year.cu")
-    _check_smem(lib, "iage_year", nz, ny, device, "one channel's year")
+    _check_smem(lib, "iage_year", nz, ny, device, "one channel's year",
+                variant)
+    launch = getattr(lib, f"iage_year_{variant}launch")
     t0 = float(t_span[0])
     dt = float((t_span[1] - t_span[0]) / n_steps)
     shape = (t_dim, nz, ny)
 
     def year(y0):
-        global iage_year_launches
+        global iage_year_launches, iage_year_v1_launches
         _check_state(y0, shape, torch.float32, device)
         out = torch.empty_like(y0)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.iage_year_launch(
+            err = launch(
                 y0.data_ptr(), out.data_ptr(), fields.data_ptr(),
                 t_dim, nz, ny, int(n_steps), t0, dt, stream,
             )
         if err:
-            raise cuda_error(lib, "iage_year", err, "iage_year_kernel launch")
-        iage_year_launches += 1
+            raise cuda_error(lib, "iage_year", err,
+                             f"iage_year_kernel {variant}launch")
+        if variant:
+            iage_year_v1_launches += 1
+        else:
+            iage_year_launches += 1
         return out
 
     return year

@@ -96,6 +96,21 @@ def _rates(diag, src, t_dim, nz, nh, dtype, device):
     return field(diag), field(src)
 
 
+def _cn_bands(kv2, dz_r_np, nz, nlat, nlon):
+    """(dl_b, du_b) float64 band fields of one vertical-mixing sample,
+    each (nz, nlat, nlon): the Crank-Nicolson operator of
+    ops/imex.py::cn_vertical_increment expanded, (M y)[k] = dl[k] y[k-1] +
+    dmain[k] y[k] + du[k] y[k+1] with dmain = -(du + dl) + diag"""
+    kv3 = np.asarray(kv2, np.float64).reshape(nz - 1, nlat, nlon)
+    dz_r_np = np.asarray(dz_r_np, np.float64)
+    up = kv3 * dz_r_np[:-1, None, None]
+    lo = kv3 * dz_r_np[1:, None, None]
+    zrow = np.zeros((1, nlat, nlon))
+    du_b = np.concatenate([up, zrow], axis=0)
+    dl_b = np.concatenate([zrow, lo], axis=0)
+    return dl_b, du_b
+
+
 def _couple(couple, t_dim, dtype, device):
     if couple is None:
         return None

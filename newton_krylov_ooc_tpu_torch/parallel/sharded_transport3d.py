@@ -55,8 +55,17 @@ from ..ops.transport3d import (
     transport_tridiag_bands,
     vmix_vertical_coeff,
 )
+from ..ops.transport3d_block_cuda import (
+    _chunk,
+    block3d_steps_plain,
+    build_block3d_steps,
+    cn_band_increment,
+    couple_rows,
+    factored_rates,
+)
 from ..ops.transport3d_cuda import (
     SEC_PER_YEAR,
+    _cn_bands,
     _couple,
     _season,
     _tensor,
@@ -406,6 +415,26 @@ def _halo_rows(steps_per_sweep):
     return max(8, -(-creep // 8) * 8)
 
 
+def _exchange(bufs, halo, nl_loc, depth=None):
+    """fill the `depth` (default: all `halo`) halo rows a side next to each
+    latitude slab's interior from its neighbours' interior rows, zeros past
+    the physical edges; bufs: the mesh's slabs (..., halo + nl_loc + halo,
+    nlon) in latitude order, on any devices"""
+    depth = halo if depth is None else depth
+    top = halo + nl_loc
+    for s, buf in enumerate(bufs):
+        south = buf[..., halo - depth:halo, :]
+        north = buf[..., top:top + depth, :]
+        if s > 0:
+            south.copy_(bufs[s - 1][..., top - depth:top, :])
+        else:
+            south.zero_()
+        if s < len(bufs) - 1:
+            north.copy_(bufs[s + 1][..., halo:halo + depth, :])
+        else:
+            north.zero_()
+
+
 def build_sharded_transport3d_year_stream(
     mesh, coef, kv, dz_r, diag, src, t_span, n_steps, *, block_rows=16,
     steps_per_sweep=1, recip_area=None, recip_dz=None, tend_chunk=None,
@@ -569,20 +598,6 @@ def build_sharded_transport3d_year_stream(
                 recip_area=put(ext(recip_area, s)) if sep_rv else None,
                 recip_dz=put(recip_dz) if sep_rv else None, device=dev))
 
-    def exchange(bufs):
-        """each slab's halo rows from its latitude neighbours' interior
-        rows, zeros past the physical edges"""
-        for s, buf in enumerate(bufs):
-            south, north = buf[:, :, :halo], buf[:, :, halo + nl_loc:]
-            if s > 0:
-                south.copy_(bufs[s - 1][:, :, nl_loc:nl_loc + halo])
-            else:
-                south.zero_()
-            if s < n_space - 1:
-                north.copy_(bufs[s + 1][:, :, halo:2 * halo])
-            else:
-                north.zero_()
-
     shape = (t_dim, nz, nlat, nlon)
 
     def year(y):
@@ -598,8 +613,8 @@ def build_sharded_transport3d_year_stream(
             spares.append(torch.empty_like(slab))
             carries.append(torch.zeros_like(slab))
         for sweep in range(n_sweeps):
-            exchange(slabs)
-            exchange(carries)
+            _exchange(slabs, halo, nl_loc)
+            _exchange(carries, halo, nl_loc)
             for s in range(n_space):
                 slabs[s], spares[s] = sweeps[s](
                     slabs[s], carries[s], spares[s], max(sweep - 1, 0) * k,
@@ -618,6 +633,231 @@ def build_sharded_transport3d_year_stream(
     # of the carry each way
     year.halo_copies = n_sweeps * 4 * (n_space - 1)
     year.halo_bytes = year.halo_copies * 4 * t_dim * nz * halo * nlon
+    return year
+
+
+def build_sharded_transport3d_year_blocked(
+    mesh, coef, kv, dz_r, diag, src, t_span, n_steps, block_steps=2,
+    couple=None, tend_chunk=None, plain=False,
+):
+    """the blocked sharded 3D year: k-step blocks (kernel B7,
+    ops/transport3d_block_cuda.py, on a CUDA shard; its plain version on a
+    CPU shard) between latitude halo exchanges of 4 k rows.
+
+    The port of the JAX package's build_sharded_transport3d_year_pallas,
+    arguments as its, without `interpret` (the mesh decides where each
+    shard runs), with its refusals in its words: latitude ('space') meshes
+    only, steady coefficients and kv, nlat splitting over the shards,
+    block_steps >= 1, a halo of 4 block_steps rows no deeper than a shard.
+    The year decomposes as the single-device years do: a leading CN(dt/2)
+    from a zero carry; (n_steps - 1) // k blocks of k steps, then a
+    remainder block of the rest, the state and its Kahan carry exchanged
+    before each; a final Heun in plain PyTorch, one 2-row exchange per
+    stage over the global coefficients' 2-row extension; a trailing
+    CN(dt/2).  diag / src: (T, nz, nlat*nlon); fields of the
+    a wet + b wet_surf form (what assemble_rate_fields emits) pass as their
+    two scalars a tracer.  couple: optional (T, T) surface coupling.
+    plain=True runs block3d_steps_plain on every shard, the card's
+    included: the reference B7 is held against.
+
+    Returns year(y) for y (T, nz, nlat, nlon) on any device, run in float32;
+    the result lies on the mesh's first device.  The year carries halo,
+    stream_diag, stream_src (as the JAX year's), n_blocks, halo_copies
+    (tensor copies a year), halo_bytes (bytes they move), smem_bytes (the
+    largest shared memory a B7 block takes; 0 without a card), launches
+    (B7 launches a year; 0 without a card) and blocks (the block functions
+    of each shard's device: k steps, then the remainder; None where absent).
+    """
+    f32 = torch.float32
+    n_space = mesh.shape["space"]
+    if mesh.shape.get("space_x", 1) != 1:
+        raise ValueError(
+            "the blocked year shards latitude only; drop the 'space_x' mesh "
+            "axis or use build_sharded_transport3d_year"
+        )
+    wet_np = _np64(coef["wet"])
+    nz, nlat, nlon = wet_np.shape
+    for name, arr in coef.items():
+        if arr is not None and arr.ndim == 4:
+            raise ValueError(
+                f"seasonal coefficient {name!r}: the blocked year is "
+                "steady-only; use build_sharded_transport3d_year"
+            )
+    kv_np = _np64(kv)
+    if kv_np.ndim == 3:
+        raise ValueError("seasonal kv: use build_sharded_transport3d_year")
+    if nlat % n_space != 0:
+        raise ValueError(f"nlat {nlat} does not split over {n_space} shards")
+    nl_loc = nlat // n_space
+    k = int(block_steps)
+    if k < 1:
+        raise ValueError("block_steps must be positive")
+    halo = 4 * k
+    if halo > nl_loc:
+        raise ValueError(
+            f"halo depth 4*block_steps={halo} exceeds the shard width "
+            f"{nl_loc}; the exchange is single-neighbor -- use "
+            f"block_steps <= {nl_loc // 4} (or fewer latitude shards)"
+        )
+    rows_ext = nl_loc + 2 * halo
+    diag4 = _np64(diag)
+    t_dim = diag4.shape[0]
+    diag4 = diag4.reshape(t_dim, nz, nlat, nlon)
+    src4 = _np64(src).reshape(t_dim, nz, nlat, nlon)
+    dt = float((t_span[1] - t_span[0]) / n_steps)
+    m_blocks, r_steps = divmod(int(n_steps) - 1, k)
+    has_diag = bool(np.any(diag4))
+    has_src = bool(np.any(src4))
+    diag_fac = _factor_rate_field(diag4, wet_np) if has_diag else None
+    src_fac = _factor_rate_field(src4, wet_np) if has_src else None
+    stream_diag = has_diag and diag_fac is None
+    stream_src = has_src and src_fac is None
+    couple_np = None if couple is None else _np64(couple)
+    if couple_np is not None and couple_np.shape != (t_dim, t_dim):
+        raise ValueError("couple must be (tracer, tracer)")
+
+    def ext(arr, s):
+        """(..., nlat, nlon) -> shard s's (..., rows_ext, nlon) block, zero
+        past the physical latitude edges"""
+        pad = [(0, 0)] * arr.ndim
+        pad[-2] = (halo, halo)
+        return np.pad(arr, pad)[..., s * nl_loc:s * nl_loc + rows_ext, :]
+
+    coef_names = [name for name, arr in sorted(coef.items())
+                  if arr is not None]
+    dl_b, du_b = _cn_bands(kv_np, _np64(dz_r), nz, nlat, nlon)
+    devs = [row[0] for row in grid_devices(mesh)]
+    blk_kw = dict(has_diag=has_diag, has_src=has_src, diag_fac=diag_fac,
+                  src_fac=src_fac, couple=couple_np)
+    steppers = {}
+    for dev in devs:
+        if dev in steppers:
+            continue
+        if plain:
+            _chunk(tend_chunk, t_dim)
+            steppers[dev] = [None if steps == 0 else block3d_steps_plain(
+                coef_names, nz, rows_ext, nlon, t_dim, dt, steps, **blk_kw)
+                for steps in ((k if m_blocks else 0), r_steps)]
+        else:
+            steppers[dev] = [None if steps == 0 else build_block3d_steps(
+                coef_names, nz, rows_ext, nlon, t_dim, dt, steps, **blk_kw,
+                tend_chunk=tend_chunk, device=dev)
+                for steps in ((k if m_blocks else 0), r_steps)]
+
+    rows_i = slice(halo, halo + nl_loc)
+    rows_2 = slice(halo - 2, halo + nl_loc + 2)
+    half_cn = float(np.float32(0.25 * dt))  # CN(dt/2): half = 0.5 (dt/2)
+    dt_f = float(np.float32(dt))
+
+    def put(arr, dev):
+        return torch.tensor(np.ascontiguousarray(arr), dtype=f32, device=dev)
+
+    shards = []
+    for s, dev in enumerate(devs):
+        stack = put(np.stack([ext(_np64(coef[name]), s)
+                              for name in coef_names]), dev)
+        dlb, dub = put(ext(dl_b, s), dev), put(ext(du_b, s), dev)
+        extras = [put(ext(arr, s), dev)
+                  for arr, on in ((diag4, stream_diag), (src4, stream_src))
+                  if on]
+        wet_i = stack[coef_names.index("wet")][:, rows_i]
+
+        def interior(field, fac, on, dev=dev, s=s, wet_i=wet_i):
+            if on:
+                return put(ext(field, s)[..., rows_i, :], dev)
+            return None if fac is None else factored_rates(fac, wet_i)
+
+        shards.append({
+            "dev": dev, "stack": stack, "dlb": dlb, "dub": dub,
+            "extras": extras, "wet_i": wet_i,
+            "dlb_i": dlb[:, rows_i], "dub_i": dub[:, rows_i],
+            "coef_2": {name: stack[i][:, rows_2]
+                       for i, name in enumerate(coef_names)},
+            "diag_i": interior(diag4, diag_fac, stream_diag),
+            "src_i": interior(src4, src_fac, stream_src),
+        })
+
+    def cn_half(sh, y, c):
+        """the Kahan-added CN(dt/2) increment of a shard's interior"""
+        return _kahan_add(y, c, cn_band_increment(
+            y, sh["dlb_i"], sh["dub_i"], sh["diag_i"], half_cn))
+
+    def tend_i(sh, y_ext2, y_i):
+        """the final Heun's tendency of a shard's interior from its 2-row
+        extended state"""
+        out = transport_tend(sh["coef_2"], y_ext2)[:, :, 2:-2, :]
+        if sh["src_i"] is not None:
+            out = out + sh["src_i"]
+        if couple_np is not None:
+            out = out.clone()
+            out[:, 0] = out[:, 0] + couple_rows(couple_np, y_i[:, 0],
+                                                sh["wet_i"])
+        return out
+
+    shape = (t_dim, nz, nlat, nlon)
+
+    def year(y):
+        if not (isinstance(y, torch.Tensor) and y.is_floating_point()):
+            raise ValueError("y must be a floating-point tensor")
+        if tuple(y.shape) != shape:
+            raise ValueError(f"y has shape {tuple(y.shape)}, expected {shape}")
+        slabs, carries = [], []
+        for (block,), sh in zip(shard_grid(mesh, y), shards):
+            y_i, c_i = cn_half(sh, block.to(sh["dev"], f32),
+                               torch.zeros_like(block, dtype=f32,
+                                                device=sh["dev"]))
+            slab = torch.zeros((t_dim, nz, rows_ext, nlon), dtype=f32,
+                               device=sh["dev"])
+            carry = torch.zeros_like(slab)
+            slab[:, :, rows_i] = y_i
+            carry[:, :, rows_i] = c_i
+            slabs.append(slab)
+            carries.append(carry)
+        for ind in [0] * m_blocks + [1] * bool(r_steps):
+            _exchange(slabs, halo, nl_loc)
+            _exchange(carries, halo, nl_loc)
+            for s, sh in enumerate(shards):
+                slabs[s], carries[s] = steppers[sh["dev"]][ind](
+                    slabs[s], carries[s], sh["stack"], sh["dlb"], sh["dub"],
+                    *sh["extras"])
+        # the final Heun, one 2-row exchange per stage, then CN(dt/2)
+        _exchange(slabs, halo, nl_loc, 2)
+        ys = [slab[:, :, rows_i] for slab in slabs]
+        f1 = [tend_i(sh, slab[:, :, rows_2], y_i)
+              for sh, slab, y_i in zip(shards, slabs, ys)]
+        mids = [torch.zeros_like(slab) for slab in slabs]
+        for mid, y_i, f in zip(mids, ys, f1):
+            mid[:, :, rows_i] = y_i + dt_f * f
+        _exchange(mids, halo, nl_loc, 2)
+        out = []
+        for sh, mid, y_i, c_s, f in zip(shards, mids, ys, carries, f1):
+            f2 = tend_i(sh, mid[:, :, rows_2], mid[:, :, rows_i])
+            y_i, c_i = _kahan_add(y_i, c_s[:, :, rows_i],
+                                  (0.5 * dt_f) * (f + f2))
+            out.append([cn_half(sh, y_i, c_i)[0]])
+        return gather_grid(mesh, out)
+
+    blocks = [blk for blks in steppers.values() for blk in blks
+              if blk is not None]
+    year.halo = halo
+    year.stream_diag = stream_diag
+    year.stream_src = stream_src
+    year.n_blocks = m_blocks + int(bool(r_steps))
+    year.blocks = steppers
+    year.smem_bytes = max((getattr(blk, "smem_bytes", 0) for blk in blocks),
+                          default=0)
+    # B7 launches a year (0 where the shards run the plain version)
+    year.launches = sum(
+        m_blocks * getattr(blk_k, "n_launch", 0)
+        + getattr(blk_r, "n_launch", 0)
+        for blk_k, blk_r in (steppers[dev] for dev in devs))
+    # per block, each interior boundary moves `halo` rows of the state and
+    # of the carry each way; the final Heun's two exchanges move 2 rows of
+    # the state each way
+    per_row = 4 * t_dim * nz * nlon
+    year.halo_copies = (year.n_blocks * 4 + 4) * (n_space - 1)
+    year.halo_bytes = ((year.n_blocks * 4 * halo + 4 * 2) * (n_space - 1)
+                       * per_row)
     return year
 
 

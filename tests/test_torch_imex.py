@@ -196,8 +196,8 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
 
     built = imex_cuda.build_libraries()
     assert sorted(built) == ["iage_block", "iage_year", "phosphorus_year",
-                             "transport3d_stream", "transport3d_sweep",
-                             "transport3d_year"]
+                             "transport3d_block", "transport3d_stream",
+                             "transport3d_sweep", "transport3d_year"]
     for name, (path, seconds) in built.items():
         assert path.parent == tmp_path / "build" and path.name.startswith(name)
         assert path.exists() and seconds > 0.0
@@ -212,22 +212,24 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     assert again["iage_year"] == (built["iage_year"][0], 0.0)
     assert again["phosphorus_year"][0] != built["phosphorus_year"][0]
 
-    # the shared 3D header keys the three 3D kernels and neither 2D one
+    # the shared 3D header keys the four 3D kernels and neither 2D one
     header3d = csrc / "transport3d_common.cuh"
     header3d.write_text(header3d.read_text() + "\n// edited\n")
     again = imex_cuda.build_libraries()
-    for name in ("transport3d_year", "transport3d_stream", "transport3d_sweep"):
+    for name in ("transport3d_year", "transport3d_stream", "transport3d_sweep",
+                 "transport3d_block"):
         assert again[name][0] != built[name][0] and again[name][1] > 0.0
     assert again["iage_year"] == (built["iage_year"][0], 0.0)
     built = again
 
-    # the stream passes key the stream year and the sweep, not B4
+    # the stream passes key the stream year and the sweep, not B4 or B7
     passes = csrc / "transport3d_stream_passes.cuh"
     passes.write_text(passes.read_text() + "\n// edited\n")
     again = imex_cuda.build_libraries()
     for name in ("transport3d_stream", "transport3d_sweep"):
         assert again[name][0] != built[name][0] and again[name][1] > 0.0
-    assert again["transport3d_year"] == (built["transport3d_year"][0], 0.0)
+    for name in ("transport3d_year", "transport3d_block"):
+        assert again[name] == (built[name][0], 0.0)
     built = again
 
     # the shared 2D header keys the three 2D kernels and neither 3D one; a
@@ -238,7 +240,8 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="phosphorus_year.cu") as failed:
         imex_cuda.build_libraries()
     assert "iage_year.cu" not in str(failed.value)
-    for name in ("transport3d_year", "transport3d_stream", "transport3d_sweep"):
+    for name in ("transport3d_year", "transport3d_stream", "transport3d_sweep",
+                 "transport3d_block"):
         assert imex_cuda._library_path(name) == built[name][0]
     assert imex_cuda._library_path("iage_year") != built["iage_year"][0]
     assert imex_cuda._library_path("iage_year").exists()

@@ -1,6 +1,7 @@
-"""the CUDA kernels (csrc/iage_year.cu, csrc/phosphorus_year.cu,
-csrc/transport3d_year.cu, csrc/transport3d_stream.cu, csrc/iage_block.cu,
-csrc/transport3d_sweep.cu) against their plain PyTorch versions; need an
+"""the CUDA kernels (csrc/iage_year.cu with its PCR variant B1v1,
+csrc/phosphorus_year.cu, csrc/transport3d_year.cu,
+csrc/transport3d_stream.cu, csrc/iage_block.cu, csrc/transport3d_sweep.cu,
+csrc/transport3d_block.cu) against their plain PyTorch versions; need an
 NVIDIA Hopper card and nvcc, and skip without a card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
@@ -21,6 +22,7 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
 from newton_krylov_ooc_tpu_torch.ops import (
     imex_block_cuda,
     imex_cuda,
+    transport3d_block_cuda,
     transport3d_cuda,
     transport3d_stream_cuda,
     transport3d_sweep_cuda,
@@ -30,6 +32,7 @@ from newton_krylov_ooc_tpu_torch.parallel import mesh as port_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
     build_sharded_transport3d_year,
+    build_sharded_transport3d_year_blocked,
     build_sharded_transport3d_year_stream,
     family_year_inputs,
 )
@@ -594,3 +597,205 @@ def test_per_step_sharded_year_replays_on_the_card(cuda_device, n_y, n_x):
     scale = float(y_cpu.abs().max())
     assert float((y_card.cpu() - y_cpu).abs().max()) <= 1e-12 * scale
     assert float((y_cpu - y0).abs().max()) > 1e-3 * scale  # the year moved y
+
+
+# -- B7: k steps on a halo-extended latitude block ----------------------------
+
+def _b7_window(nz, nlat, nlon, seed=53):
+    """a (2, nz, nlat, nlon) window of a synthetic circulation, its
+    coefficient stack and CN bands (float32, on the CPU), a rough state and
+    a non-zero carry, rate fields and a coupling; the window is the whole
+    grid, so its selectors are the ones B7 derives from wet"""
+    mask = np.ones((nz, nlat, nlon), np.int32)
+    mask[:, 3, 2] = 0
+    mask[2:, nlat - 5, nlon - 3] = 0
+    circ = synthetic.gen_circulation(nz, nlat, nlon, mask=mask)
+    coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
+    names = [n for n, a in sorted(coef.items()) if a is not None]
+    dlb, dub = transport3d_cuda._cn_bands(kv.numpy(), dz_r.numpy(), nz, nlat,
+                                          nlon)
+    wet = (mask > 0).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    shape = (2, nz, nlat, nlon)
+
+    def f32(arr):
+        return torch.as_tensor(np.asarray(arr), dtype=torch.float32)
+
+    return {
+        "names": names, "wet": wet,
+        "dt": transport3d_cuda.SEC_PER_YEAR
+        / synthetic.stable_steps_per_year(circ),
+        "stack": f32(torch.stack([coef[n] for n in names])),
+        "dlb": f32(dlb), "dub": f32(dub),
+        "y": f32(rng.uniform(0.0, 1.0, shape) * wet),
+        "c": f32(rng.uniform(-1.0e-7, 1.0e-7, shape) * wet),
+        "diag": f32(-rng.uniform(0.0, 1.0e-6, shape) * wet),
+        "src": f32(rng.uniform(0.0, 1.0e-8, shape) * wet),
+        "diag_fac": ([-2.0e-8, 0.0], [-3.0e-7, -1.0e-7]),
+        "src_fac": ([1.0e-9, 3.0e-9], [0.0, 2.0e-9]),
+        "couple": np.array([[-3.0e-7, 2.0e-7], [0.0, -1.0e-7]]),
+    }
+
+
+def _b7_call(w, k, rates, coupled, device, **kwargs):
+    """(kernel fn or plain fn, its operands) for one B7 case"""
+    kw = dict(has_diag=rates != "none", has_src=rates != "none",
+              couple=w["couple"] if coupled else None)
+    extras = []
+    if rates == "factored":
+        kw.update(diag_fac=w["diag_fac"], src_fac=w["src_fac"])
+    elif rates == "dense":
+        extras = [w["diag"], w["src"]]
+    t_dim, nz, rows, nlon = w["y"].shape
+    fn = transport3d_block_cuda.build_block3d_steps(
+        w["names"], nz, rows, nlon, t_dim, w["dt"], k, **kw, device=device,
+        **kwargs)
+    ops = [w[key].to(device) for key in ("y", "c", "stack", "dlb", "dub")]
+    return fn, ops + [e.to(device) for e in extras]
+
+
+@pytest.mark.parametrize("nz, k, rates, coupled", [
+    (3, 1, "none", False), (3, 2, "factored", True), (3, 4, "dense", True),
+    (60, 1, "dense", False), (60, 2, "factored", True), (60, 4, "none", False),
+])
+def test_block3d_kernel_matches_plain(cuda_device, nz, k, rates, coupled):
+    """B7 against block3d_steps_plain on the card, over the whole window
+    (its edge rows included: both read zeros past it), from a rough state
+    and a non-zero carry"""
+    w = _b7_window(nz, 24, 40)
+    fn, ops = _b7_call(w, k, rates, coupled, cuda_device)
+    plain = transport3d_block_cuda.block3d_steps_plain(
+        w["names"], nz, 24, 40, 2, w["dt"], k, has_diag=rates != "none",
+        has_src=rates != "none",
+        diag_fac=w["diag_fac"] if rates == "factored" else None,
+        src_fac=w["src_fac"] if rates == "factored" else None,
+        couple=w["couple"] if coupled else None)
+    before = transport3d_block_cuda.transport3d_block_launches
+    y_k, c_k = fn(*ops)
+    torch.cuda.synchronize()
+    assert (transport3d_block_cuda.transport3d_block_launches - before
+            == fn.n_launch == -(-k // fn.plan[0]))
+    y_p, c_p = plain(*ops)
+    scale = float(y_p.abs().max())
+    assert torch.isfinite(y_k).all()
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+    assert float(((y_k + c_k) - (y_p + c_p)).abs().max()) / scale < TOL
+    assert float((y_k - ops[0]).abs().max()) / scale > 1e-3  # y moved
+    land = torch.as_tensor(w["wet"] == 0.0, device=cuda_device)
+    assert float(y_k[:, land].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("coupled", [False, True])
+def test_block3d_tiles_and_split_steps_match_one_block(cuda_device, coupled):
+    """tiles of any shape (ragged ones included) and k split into launches
+    of j' steps give, on every cell, exactly what one block over the whole
+    window running all k steps gives"""
+    w = _b7_window(3, 20, 24)
+    whole, ops = _b7_call(w, 4, "factored", coupled, cuda_device,
+                          plan=(4, 20, 24))
+    assert whole.plan == (4, 20, 24) and whole.n_launch == 1
+    y_w, c_w = whole(*ops)
+    for plan in ((1, 4, 4), (2, 5, 3), (3, 7, 24), (4, 6, 5)):
+        tiled, _ = _b7_call(w, 4, "factored", coupled, cuda_device,
+                            plan=plan)
+        y_t, c_t = tiled(*ops)
+        torch.cuda.synchronize()
+        assert torch.equal(y_t, y_w) and torch.equal(c_t, c_w), plan
+
+
+def test_block3d_kernel_rejects_what_it_cannot_take(cuda_device):
+    """wrong device, dtype, shape or layout raise before any launch; a
+    block that cannot hold one cell is refused, naming the limit and B6"""
+    w = _b7_window(3, 16, 12)
+    fn, ops = _b7_call(w, 2, "none", False, cuda_device)
+    y, c = ops[:2]
+    before = transport3d_block_cuda.transport3d_block_launches
+    for bad in (y.cpu(), y.double(), y[:, :, 1:], y.transpose(2, 3)
+                .contiguous().transpose(2, 3)):
+        with pytest.raises(ValueError):
+            fn(bad, c, *ops[2:])
+    with pytest.raises(ValueError, match="coefficient operands"):
+        fn(*ops, ops[0])
+    assert transport3d_block_cuda.transport3d_block_launches == before
+    names = w["names"]
+    with pytest.raises(ValueError, match="shared memory"):
+        transport3d_block_cuda.build_block3d_steps(
+            names, 60, 392, 320, 1, 100.0, 1, device=cuda_device,
+            plan=(1, 100, 100))
+    with pytest.raises(ValueError, match="year_stream"):
+        transport3d_block_cuda.build_block3d_steps(
+            names, 60, 392, 320, 4, 100.0, 1, couple=np.zeros((4, 4)),
+            device=cuda_device)
+
+
+@pytest.mark.parametrize("n_space, k", [(2, 1), (4, 1), (8, 1), (4, 2),
+                                        (2, 3)])
+def test_blocked_3d_year_kernel_matches_plain_and_one_shard(cuda_device,
+                                                            n_space, k):
+    """the blocked 3D year on n shards of the card against 1 shard (JAX's
+    contract, 1e-6) and against the same mesh through block3d_steps_plain;
+    8 shards at k = 1 and 4 at k = 2 have shards of exactly 4 k rows, where
+    B7's selectors, derived from the slab's wet mask, must still be exact;
+    the coupled pair with factored rates, many blocks from a carry"""
+    nz, nlat, nlon = 4, 32, 40
+    circ = synthetic.gen_circulation(nz, nlat, nlon)
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, ABIO_SPECS)
+    n_steps = synthetic.stable_steps_per_year(circ)
+    args = (coef, kv, dz_r, diag, src, (0.0, transport3d_cuda.SEC_PER_YEAR),
+            n_steps)
+    y0 = torch.as_tensor(np.random.default_rng(59).uniform(
+        0.0, 1.0, (2, nz, nlat, nlon)) * (circ["mask"] > 0),
+        dtype=torch.float32, device=cuda_device)
+
+    def mesh(n):
+        return port_mesh.make_mesh(1, n, devices=[cuda_device] * n)
+
+    one = build_sharded_transport3d_year_blocked(mesh(1), *args,
+                                                 block_steps=k, couple=couple)
+    many = build_sharded_transport3d_year_blocked(
+        mesh(n_space), *args, block_steps=k, couple=couple)
+    before = transport3d_block_cuda.transport3d_block_launches
+    y_n = many(y0)
+    torch.cuda.synchronize()
+    launches = transport3d_block_cuda.transport3d_block_launches - before
+    m_blocks, r_steps = divmod(n_steps - 1, k)
+    k_blk, r_blk = many.blocks[cuda_device]
+    assert launches == many.launches == n_space * (
+        m_blocks * k_blk.n_launch + (r_blk.n_launch if r_steps else 0))
+    assert many.smem_bytes > 0
+    y_1 = one(y0)
+    y_p = build_sharded_transport3d_year_blocked(
+        mesh(n_space), *args, block_steps=k, couple=couple, plain=True)(y0)
+    scale = float(y_p.abs().max())
+    assert y_n.device == cuda_device and torch.isfinite(y_n).all()
+    assert float((y_n - y_1).abs().max()) / scale <= 1e-6
+    assert float((y_n - y_p).abs().max()) / scale < TOL
+    assert float((y_n * torch.as_tensor(circ["mask"] == 0,
+                                        device=cuda_device)).abs().max()) == 0
+
+
+# -- B1v1: the iage year with PCR column solves --------------------------------
+
+@pytest.mark.parametrize("nz, ny, n_steps", [(8, 6, 24), (40, 50, 8760)])
+@pytest.mark.parametrize("aging", [True, False])
+def test_iage_year_v1_kernel_matches_plain_and_b1(cuda_device, nz, ny,
+                                                  n_steps, aging):
+    grid, diag = _setup(nz, ny, cuda_device)
+    source = np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR if aging else 0.0)
+    span = (0.0, physics.SEC_PER_YEAR)
+    y0 = torch.as_tensor(np.random.default_rng(7).uniform(0.0, 2.0,
+                                                          (2, nz, ny)),
+                         dtype=torch.float32, device=cuda_device)
+    before = imex_cuda.iage_year_v1_launches
+    y_v1 = imex_cuda.build_iage_year_v1(grid, diag, source, span, n_steps,
+                                        device=cuda_device)(y0)
+    torch.cuda.synchronize()
+    assert imex_cuda.iage_year_v1_launches == before + 1
+    y_b1 = imex_cuda.build_iage_year(grid, diag, source, span, n_steps,
+                                     device=cuda_device)(y0)
+    y_p = imex_cuda.build_iage_year_plain(grid, diag, source, span,
+                                          n_steps)(y0)
+    scale = float(y_p.abs().max())
+    assert torch.isfinite(y_v1).all()
+    assert float((y_v1 - y_p).abs().max()) / scale < TOL
+    assert float((y_v1 - y_b1).abs().max()) / scale < TOL
