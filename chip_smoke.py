@@ -54,15 +54,18 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     four-module factored family and a 12-month seasonal year, each against
     its plain year at 400 steps and timed at 2000; the coupled
     ABIO_DIC/DIC14 pair against its plain year at 400 steps.  Its timed runs
-    are the path whose launches the kernel's JSON entry counts;
+    are the path whose launches the kernel's JSON entry counts.  Phases 8,
+    9, 11 and 13 each print the kernel times PERF.md gives for the design
+    before the fused step first, and this run's beside them last;
   9 iage_block in the JAX bench's million-cell blocked year (256 x 2000,
     one module of two tracers, 12,615 steps, blocks of 8 steps, a (1, 1)
     mesh): the full year timed; over its first tenth against the plain f32
     blocked year and the plain f64 per-step year, and timed beside the
     plain f32 tenth (its JSON entry's times); the full year on a (1, 4)
     mesh of the one card against the (1, 1) year; the source-free tenth
-    from seeded noise (a stand-in for a Krylov direction) against the same
-    two plain years, reported, not gated (Thomas at 256 levels);
+    from seeded noise (a stand-in for a Krylov direction), the kernel and
+    the plain f32 blocked year each within 5e-5 of the f64 per-step year
+    (both solve their columns in float64);
  10 the sharded spin-up through cli/sharded_spinup.py's entry function at
     the example's defaults (4 modules, 24 x 48, 2920 steps, float32 on
     iage_block) on a (1, 1) mesh and on 4 shards of the one card, checked
@@ -91,9 +94,11 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     (the 1-shard year and its plain f32 blocked year are its JSON entry's
     times), each within 2e-5 of the plain f64 year, 8 shards within 1e-6
     of 1, land zero, and within 1e-4 of the same year through
-    transport3d_sweep; (b) phase 8's steady upwind3 gx1 year at full depth
-    on 1 shard at k = 1 and on 4 shards of the card at k = 2, timed over
-    2000 steps beside transport3d_stream and transport3d_sweep, and held
+    transport3d_sweep, the shards of the card in one cooperative launch a
+    block; (b) phase 8's steady upwind3 gx1 year at full depth on 1 shard
+    at k = 1 and on 4 shards of the card at k = 2, timed over 2000 steps
+    (median of 3 after a warm-up) beside transport3d_stream and
+    transport3d_sweep, and held
     at 400 steps against phase 8's plain f32 year within 5e-5.  Its timed
     years are the path whose launches the kernel's JSON entry counts;
  14 iage_year_v1 (B1's PCR variant) at phase 2's size, on its F and JVP
@@ -265,11 +270,39 @@ BLOCK3D_SHARD_TOL = 1e-6  # 8 shards against 1
 BLOCK3D_VS_B6 = 1e-4      # against the year through B6 (__graft_entry__.py)
 # phase 13 (b): gx1 at full depth, 1 shard at k = 1, 4 shards at k = 2
 GX1_BLOCK_MESHES = ((1, 1), (GX1_SHARDS, 2))
+# phase 9's source-free tenth from seeded noise against the f64 per-step
+# year at 256 levels (ROADMAP C), relative to max|y|
+ROUGH_TOL = 5e-5
+# the kernels' ms before the fused step and B3's float64 columns (PERF.md
+# section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+EARLIER_MS = {
+    8: {"upwind3_year": 1570.17, "upwind3_400_steps": 315.02,
+        "stencil_f32_year": 1246.70, "stencil_bf16_year": 991.28,
+        "family_T4_year": 6428.90, "seasonal_year": 1867.09},
+    9: {"year": 2010.23, "tenth": 213.72, "year_4_shards": 3877.14},
+    11: {"1shard_year": 1616.95, "4shards_k1_year": 5241.78,
+         "4shards_k2_year": 5152.44, "4shards_400_steps": 1039.65},
+    13: {"coupled_1shard_year": 142.20, "coupled_8shards_year": 377.96,
+         "gx1_1shard_k1_year": 22002.58, "gx1_4shards_k2_year": 25851.77},
+}
 
 
 def phase(num, title, **numbers):
     body = " ".join(f"{key}={val}" for key, val in numbers.items())
     print(f"phase {num} {title}: {body}", flush=True)
+
+
+def earlier_times(num):
+    """phase num's line of the kernels' earlier times, ahead of this run's"""
+    phase(num, "kernel ms before the fused step (PERF.md, NVIDIA H100 80GB "
+               "HBM3, 700.00 W)", **EARLIER_MS[num])
+
+
+def against_earlier(num, new_ms):
+    """phase num's line of this run's kernel ms beside the earlier ones"""
+    phase(num, "kernel ms, this run vs before the fused step",
+          **{key: f"{new_ms[key]:.2f}/{EARLIER_MS[num][key]:.2f}"
+             for key in EARLIER_MS[num]})
 
 
 def timed(fn, *args):
@@ -679,6 +712,8 @@ def stream_kernel_phase(device):
     rng = np.random.default_rng(0)
     noise = rng.uniform(0.0, 1.0, (1,) + GX1)
     launches, worst_abs = 0, 0.0
+    earlier_times(8)
+    new_ms = {}
 
     # -- the steady upwind3 year, T = 1, recip_vol factored (bench.py:859-866)
     circ = synthetic.gen_circulation(*GX1)
@@ -743,6 +778,7 @@ def stream_kernel_phase(device):
                          "plain f64 year")
     # the JSON line's times are of the same work, the 400-step year
     timing = (ms_c, ms_32, bound_c, bound_c_by)
+    new_ms.update(upwind3_year=ms, upwind3_400_steps=ms_c)
     PLAIN_GX1.update(f32=y_32, f64=y_64)
     del plain, year_b4, year_c
 
@@ -765,6 +801,9 @@ def stream_kernel_phase(device):
         ("coupled ABIO pair", 2, abio_diag, abio_src, abio_couple, factors,
          F32_TOL, None),
     )
+    earlier_key = {"stencil f32": "stencil_f32_year",
+               "stencil bf16": "stencil_bf16_year",
+               "family T=4": "family_T4_year"}
     for label, t_dim, diag, src, couple, kwargs, tol, up_tol in cases:
         y0_t = y0.expand((t_dim,) + GX1).contiguous()
         args = (kv, dz_r, diag, src, span)
@@ -786,6 +825,7 @@ def stream_kernel_phase(device):
             if not up_err <= up_tol:
                 raise SystemExit(f"chip_smoke: {label} at {n_steps} steps is "
                                  f"{up_err:.3e} from upwind3 (bound {up_tol})")
+            new_ms[earlier_key[label]] = ms_t
             numbers.update(
                 kernel_ms_per_year=ms_t, kernel_ms_per_step=ms_t / n_steps,
                 ms_per_step_per_module=ms_t / n_steps / t_dim,
@@ -827,6 +867,8 @@ def stream_kernel_phase(device):
         hbm_bytes_per_step=year_t.hbm_bytes_per_step,
         est_flops_per_step=year_t.est_flops_per_step,
         bound_ms=stream_bound(year_t, 1, n_cells, n_steps_s)[0]))
+    new_ms["seasonal_year"] = ms_t
+    against_earlier(8, new_ms)
     phase(8, "transport3d_stream path", launches=launches)
     return (launches, worst_abs, *timing)
 
@@ -870,6 +912,8 @@ def sweep_kernel_phase(device):
         return build_sharded_transport3d_year_stream(
             mesh, *args, steps, steps_per_sweep=k, **dict(shed, **kwargs))
 
+    earlier_times(11)
+
     # -- the path: the 2000-step year on one shard in turns with B5, then on
     # four shards of the card at 1 and 2 steps a sweep
     year5 = stream.build_transport3d_year_stream(*args, n_steps, **shed,
@@ -896,6 +940,7 @@ def sweep_kernel_phase(device):
                 * sum(year.n_sweeps for year in year4.values()))
     ms5, ms1 = statistics.median(ms5), statistics.median(ms1)
     err1 = rel_err(y_1, y_5, scale)
+    tile_y, tile_x = transport3d_sweep_cuda.step_tile()
     bound_y, bound_y_by = stream_bound(year5, 1, n_cells, n_steps)
     phase(11, f"transport3d_sweep path ({nz}x{nlat}x{nlon}, {n_steps} steps, "
               f"T=1, upwind3, recip_vol factored)",
@@ -910,11 +955,11 @@ def sweep_kernel_phase(device):
                                 for k, year in year4.items()},
           halo_mbytes_per_year={k: year.halo_bytes / 1e6
                                 for k, year in year4.items()},
-          pass_a_blocks_per_shard={1: -(-(nlat + 2 * year1.halo) // 16)
-                                   * -(-nlon // 32),
-                                   4: -(-(nlat // GX1_SHARDS + 2
-                                          * year4[1].halo) // 16)
-                                   * -(-nlon // 32)},
+          step_blocks_per_shard={1: -(-(nlat + 2 * year1.halo) // tile_y)
+                                 * -(-nlon // tile_x),
+                                 4: -(-(nlat // GX1_SHARDS + 2
+                                        * year4[1].halo) // tile_y)
+                                 * -(-nlon // tile_x)},
           bound_ms_per_year=bound_y, bound_by=bound_y_by, launches=launches)
     if launches != expected:
         raise SystemExit(f"chip_smoke: {launches} transport3d_sweep launches "
@@ -955,6 +1000,8 @@ def sweep_kernel_phase(device):
     if float((y_c * (1.0 - wet)).abs().max()) != 0.0:
         raise SystemExit("chip_smoke: transport3d_sweep wets land")
     timing = (ms_c, ms_p, bound_c, bound_c_by)
+    against_earlier(11, {"1shard_year": ms1, "4shards_k1_year": ms4[1],
+                     "4shards_k2_year": ms4[2], "4shards_400_steps": ms_c})
     del year_c, y_c, y_p, y_32, y_64
 
     # -- the stencil f32 year, and the 12-month seasonal coupled pair, on
@@ -1172,6 +1219,7 @@ def iage_block_phase(device):
     four = make_mesh(1, 4, devices=[device] * 4)
     y0 = torch.full((1, 2, nz, ny), 0.5, dtype=torch.float32, device=device)
     blocked = {"block_steps": BIG_BLOCK_STEPS}
+    earlier_times(9)
 
     reset_counts()
     y_k, ms = kernel_timing_reps(build_sharded_year_blocked(one, *args,
@@ -1195,8 +1243,8 @@ def iage_block_phase(device):
     y_4, ms_4 = timed(build_sharded_year_blocked(four, *args, **blocked), y0)
     err_4 = rel_err(y_4, y_k, float(y_k.abs().max()))
     # the source-free tenth from seeded noise, a stand-in for a Krylov
-    # direction: B3's Thomas columns against the plain years' PCR at 256
-    # levels (reported, not gated: ROADMAP C)
+    # direction, at 256 levels against the f64 per-step year (ROADMAP C:
+    # float32 column solves missed it by 14x (Thomas) and 1250x (PCR))
     rough_args = (*short[:4], np.zeros_like(aging), *short[5:])
     y_r = torch.as_tensor(np.random.default_rng(61).standard_normal(
         (1, 2, nz, ny)), dtype=torch.float32, device=device)
@@ -1221,16 +1269,19 @@ def iage_block_phase(device):
           plain_f64_ms_tenth=ms_64, launches_per_year=launches_per_year,
           bound_ms_per_year=bound_ms, bound_ms_tenth=bound_t,
           bound_by=bound_by, max_abs_y=scale, **rough,
-          rough_tol=F32_TOL, max_abs_y_rough=scale_r)
+          rough_tol=ROUGH_TOL, max_abs_y_rough=scale_r)
+    against_earlier(9, {"year": ms, "tenth": ms_kt, "year_4_shards": ms_4})
     finite = all(bool(torch.isfinite(arr).all())
                  for arr in (y_k, y_kt, y_4, y_rk))
+    rough_64 = max(rough["rel_err_rough_f64_tenth"],
+                   rough["rel_err_rough_plain_f32_vs_f64"])
     if not (finite and err_32 <= F32_TOL and err_64 <= F64_TOL
-            and err_4 <= F32_TOL):
+            and err_4 <= F32_TOL and rough_64 <= ROUGH_TOL):
         raise SystemExit(
             f"chip_smoke: iage_block disagrees (finite {finite}): {err_32:.3e} "
             f"vs f32 over the tenth (bound {F32_TOL}), {err_64:.3e} vs f64 "
             f"(bound {F64_TOL}), 4 shards {err_4:.3e} from 1 (bound "
-            f"{F32_TOL})"
+            f"{F32_TOL}), from noise {rough} (bound {ROUGH_TOL} from f64)"
         )
     # the JSON line's times are of the same work, the tenth
     return (float((y_kt - y_pt).abs().max()), ms_kt, ms_pt, bound_t,
@@ -1284,11 +1335,14 @@ def sharded_solve_phase(device):
     return launches
 
 
-def block3d_plan(year):
-    """(j', tile rows, tile columns) of a blocked year's B7 launches: the
-    k-step blocks', then the remainder block's"""
+def block3d_schedule(year, n_shards):
+    """how a blocked year's B7 launches lay the shards' tiles on the card:
+    persistent blocks, the most tiles one takes a step, a shard's tiles"""
     (blks,) = year.blocks.values()
-    return [blk.plan for blk in blks if blk is not None]
+    sched = next(blk for blk in blks if blk is not None).schedule(n_shards)
+    return {"grid": list(sched.grids),
+            "tiles_per_block": list(sched.tiles_per_block),
+            "tiles_per_shard": sched.tiles_y * sched.tiles_x}
 
 
 def block3d_kernel_phase(device):
@@ -1301,6 +1355,9 @@ def block3d_kernel_phase(device):
 
     def mesh(n):
         return make_mesh(1, n, devices=[device] * n)
+
+    earlier_times(13)
+    new_ms = {}
 
     # -- (a) the coupled pair at gx1's horizontal extent
     nz, nlat, nlon = BLOCK3D_GRID
@@ -1347,8 +1404,8 @@ def block3d_kernel_phase(device):
           kernel_ms_per_year_8shards=ms[BLOCK3D_SHARDS],
           plain_f32_blocked_ms_per_year=ms_32, plain_f64_ms_per_year=ms_64,
           b6_ms_per_year=ms_6, launches=launches, expected_launches=expected,
-          plan_1shard=block3d_plan(years[1]),
-          plan_8shards=block3d_plan(year8),
+          schedule_1shard=block3d_schedule(years[1], 1),
+          schedule_8shards=block3d_schedule(year8, BLOCK3D_SHARDS),
           smem_bytes={n: year.smem_bytes for n, year in years.items()},
           blocks_per_year=year8.n_blocks,
           halo_copies_per_year_8shards=year8.halo_copies,
@@ -1371,6 +1428,8 @@ def block3d_kernel_phase(device):
                          f"for {expected} expected")
     worst_abs = float((outs[1] - y_32).abs().max())
     timing = (ms[1], ms_32, bound_ms, bound_by)
+    new_ms.update(coupled_1shard_year=ms[1],
+                  coupled_8shards_year=ms[BLOCK3D_SHARDS])
     del years, outs, y_32, y_64, y_6
 
     # -- (b) phase 8's steady upwind3 year at full gx1 depth, T = 1
@@ -1399,7 +1458,7 @@ def block3d_kernel_phase(device):
     reset_counts()
     ms_b7, outs = {}, {}
     for nk, year in years.items():
-        outs[nk], ms_b7[nk] = timed(year, y0)
+        outs[nk], ms_b7[nk] = kernel_timing_reps(year, y0, GX1_REPS)
     count = blk.transport3d_block_launches
     launches += count
     _, ms5 = kernel_timing_reps(year5, y0, 1)
@@ -1423,8 +1482,8 @@ def block3d_kernel_phase(device):
              for n, k in GX1_BLOCK_MESHES},
           b5_ms_per_year=ms5, b6_ms_per_year_4shards_k2=ms6,
           rel_err_1shard_vs_b5=err_b5, **errs, tol=F32_TOL, launches=count,
-          plan={f"{n}shard_k{k}": block3d_plan(years[(n, k)])
-                for n, k in GX1_BLOCK_MESHES},
+          schedule={f"{n}shard_k{k}": block3d_schedule(years[(n, k)], n)
+                    for n, k in GX1_BLOCK_MESHES},
           smem_bytes={f"{n}shard_k{k}": years[(n, k)].smem_bytes
                       for n, k in GX1_BLOCK_MESHES},
           halo_copies_per_year={f"{n}shard_k{k}": years[(n, k)].halo_copies
@@ -1434,8 +1493,13 @@ def block3d_kernel_phase(device):
             and max(errs.values()) <= F32_TOL and err_b5 <= F32_TOL):
         raise SystemExit(f"chip_smoke: transport3d_block at gx1 disagrees: "
                          f"{errs}, {err_b5:.3e} from B5")
-    if count == 0:
-        raise SystemExit("chip_smoke: no transport3d_block launch at gx1")
+    expected = (GX1_REPS + 1) * sum(year.launches for year in years.values())
+    if count != expected:
+        raise SystemExit(f"chip_smoke: {count} transport3d_block launches at "
+                         f"gx1 for {expected} expected")
+    new_ms.update(gx1_1shard_k1_year=ms_b7[(1, 1)],
+                  gx1_4shards_k2_year=ms_b7[(GX1_SHARDS, 2)])
+    against_earlier(13, new_ms)
     PLAIN_GX1.clear()
     phase(13, "transport3d_block path", launches=launches)
     return (launches, worst_abs, *timing)

@@ -1,17 +1,18 @@
-"""what kernel B7's tiles and steps a launch cost on the card, and where
-the time of the blocked sharded 3D year goes.
+"""what kernel B7's steps a launch cost on the card, and where the time of
+the blocked sharded 3D year goes.
 
 On one CUDA card, for one shard's slab of the two configurations
 chip_smoke.py's phase 13 runs -- (a) the coupled dic/dic14 pair at gx1's
 horizontal extent (3 x 384 x 320, T = 2, blocks of 4, a 416-row slab) and
 (b) the steady upwind3 year at full gx1 depth (60 x 384 x 320, T = 1, a
 392-row slab at k = 1, and a 4-shard 112-row slab at k = 2) -- it times
-one k-step block (CUDA events, the median of five after a warm-up) under
-block_plan's tile for each j' = 1 .. k steps a launch, and prints one JSON
-line each: the plan, its loaded cells over the slab's, its shared memory,
-microseconds a block and a step.  Then it profiles one year of (a) on 1
-and 8 shards of the card (torch.profiler, after a warm-up year): wall ms,
-B7's device ms and the device's idle share.
+one block of k steps in one cooperative launch (CUDA events, the median
+of five after a warm-up) for k = 1, 2 and the configuration's k (the slab
+grows 8 rows a step more), and prints one JSON line each: the schedule's
+persistent blocks and tiles a block, the shared memory, microseconds a
+block and a step.  Then it profiles one year of (a) on 1 and 8 shards of
+the card (torch.profiler, after a warm-up year): wall ms, B7's device ms
+and the device's idle share.
 
     python -m newton_krylov_ooc_tpu_torch.cli.profile_block3d
 
@@ -32,7 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..models.irf_offline import synthetic
 from ..ops.compute import resolve_device
-from ..ops.transport3d_block_cuda import build_block3d_steps, card_plan
+from ..ops.transport3d_block_cuda import build_block3d_steps
 from ..ops.transport3d_cuda import SEC_PER_YEAR, _cn_bands
 from ..ops.transport3d_stream_cuda import _factor_rate_field
 from ..parallel.mesh import make_mesh
@@ -112,27 +113,16 @@ def main(argv=None):
              ("(a) coupled 3 levels, 8 shards", COUPLED, COUPLED_SPECS, 8, 4),
              ("(b) gx1, 1 shard", GX1, [[{"name": "T"}]], 1, 1),
              ("(b) gx1, 4 shards", GX1, [[{"name": "T"}]], 4, 2))
-    for label, shape, specs, n_space, k in cases:
-        args, kwargs, ops = slab_case(shape, specs, n_space, k, device)
-        names, nz, rows, nlon, t_dim = args[:5]
-        for j_inner in range(1, k + 1):
-            try:
-                plan = card_plan(nz, t_dim, kwargs["couple"] is not None,
-                                 rows, nlon, k, device, j_inner=j_inner)
-            except ValueError as err:  # no tile takes j' steps
-                print(json.dumps({"slab": label, "k": k, "j_inner": j_inner,
-                                  "plan": None, "why": str(err)}), flush=True)
-                continue
-            fn = build_block3d_steps(*args, **kwargs, device=device,
-                                     plan=plan)
+    for label, shape, specs, n_space, k_cfg in cases:
+        for k in sorted({1, 2, k_cfg}):
+            args, kwargs, ops = slab_case(shape, specs, n_space, k, device)
+            fn = build_block3d_steps(*args, **kwargs, device=device)
             micros = time_block(fn, ops)
-            halo = 4 * plan[0]
-            ly = -(-rows // plan[1]) * min(rows, plan[1] + 2 * halo)
-            lx = (nlon if plan[2] == nlon else
-                  -(-nlon // plan[2]) * (plan[2] + 2 * halo))
+            sched = fn.schedule(1)
             print(json.dumps({
-                "slab": label, "rows": rows, "k": k, "plan": plan,
-                "loaded_over_slab": ly * lx / (rows * nlon),
+                "slab": label, "rows": args[2], "k": k,
+                "grid": sched.grids[0],
+                "tiles_per_block": sched.tiles_per_block[0],
                 "smem_bytes": fn.smem_bytes, "us_per_block": micros,
                 "us_per_step": micros / k, "card": card}), flush=True)
     # one year of (a) on 1 and 8 shards

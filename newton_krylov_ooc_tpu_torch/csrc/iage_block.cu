@@ -38,15 +38,20 @@
 // Each step is B1's three phases (csrc/iage_year.cu), through the device
 // code it shares in csrc/imex_common.cuh: the fused face flux
 // G = ca y_l + cb y_r, the kv closed form, and the Thomas column solve with
-// the Kahan add fused in, which replaces the TPU kernel's reciprocal-form
-// PCR within the same tolerance.  The constants arrive lane-packed as
+// the Kahan add fused in (cn_column64), in float64: at 256 levels the
+// mixed layer's CN system has h |M| ~ 6e3, and a float32 solve (the TPU
+// kernel's reciprocal-form PCR, or Thomas) loses that many ulps of the
+// slow modes of a rough state each step -- 6.25e-2 (PCR) and 7.21e-4
+// (Thomas) of max|y| over a tenth of the year from seeded noise, against
+// the float64 year.  The increment is rounded once to float32 for the
+// Kahan add; ops/imex_block_cuda.py's plain version solves in float64 too.  The constants arrive lane-packed as
 // pack_block_consts lays them out for the TPU, (rows, C nx) with channel
 // ch's column x at lane ch nx + x, and the state as (C, nz, nx).
 //
-// Shared memory: 9 nz L + 3 nz - 2 floats for a tile of L loaded columns
-// (iage_block_smem_bytes is the one place that counts it).  At nz = 256 a
-// block holds 24 columns; the wrapper then takes one step a launch and
-// tiles of 20 owned columns.  Clusters, cp.async and a persistent kernel
+// Shared memory: 11 nz L + 3 nz - 2 floats for a tile of L loaded columns,
+// the float64 sweep factors included (iage_block_smem_bytes is the one
+// place that counts it).  At nz = 256 a block holds 20 columns; the wrapper
+// then takes one step a launch and tiles of 16 owned columns.  Clusters, cp.async and a persistent kernel
 // are later work.
 
 #include "imex_common.cuh"
@@ -58,9 +63,10 @@ using namespace imex;
 constexpr int kThreads = 256;
 
 __host__ __device__ inline long smem_floats(int nz, int width) {
-  // y, comp, f1, ys, diag (nz, width); kv (nz-1, width); the tile's
+  // the float64 sweep factor cp (nz, width); y, comp, f1, ys, diag (nz,
+  // width), f1 and ys also the float64 gp; kv (nz-1, width); the tile's
   // constant fields; the channel's source by level (nz)
-  return 5L * nz * width + (long)(nz - 1) * width + grid_floats(nz, width) +
+  return 7L * nz * width + (long)(nz - 1) * width + grid_floats(nz, width) +
          nz;
 }
 
@@ -81,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
                       Consts cs, const float* __restrict__ header,
                       int src_rows, int nz, int nx, int tile, int halo,
                       int i0, int j_steps, float t_start, float dt) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ch = blockIdx.y;
   const long w_dim = (long)gridDim.y * nx;
   const int x0 = blockIdx.x * tile;
@@ -93,7 +99,8 @@ __global__ void __launch_bounds__(kThreads)
   const long lane0 = (long)ch * nx + lo;  // lane of local column 0
   const Header h = load_header(header);
 
-  float* y = smem;
+  double* cpd = reinterpret_cast<double*>(smem);
+  float* y = reinterpret_cast<float*>(cpd + n);
   float* comp = y + n;
   float* f1 = comp + n;
   float* ys = f1 + n;
@@ -159,9 +166,11 @@ __global__ void __launch_bounds__(kThreads)
       kahan_add(y, comp, idx, half_dt * (f1[idx] + f2));
     }
     __syncthreads();
-    // C: CN over dt, one thread per column; f1 and ys hold the sweep
+    // C: CN over dt in float64, one thread per column; cpd and f1..ys
+    // hold the sweep
     for (int j = threadIdx.x; j < L; j += blockDim.x)
-      cn_column<true>(y, comp, f1, ys, kv, diag, dt, j, nz, L, g);
+      cn_column64<true>(y, comp, cpd, reinterpret_cast<double*>(f1), kv,
+                        diag, dt, j, nz, L, g);
     __syncthreads();
   }
 

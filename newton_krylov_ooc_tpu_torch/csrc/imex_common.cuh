@@ -183,6 +183,62 @@ __device__ inline void cn_column(float* y, float* comp, float* cp, float* gp,
   }
 }
 
+// cn_column in float64: the flux-form right-hand side, the elimination and
+// the back substitution in double from the float32 state and kv, the
+// increment rounded once to float32 for the Kahan add.  In a deep column of
+// stiff mixing (256 levels, h |M| ~ 6e3 in the mixed layer) float32 sweep
+// factors and right-hand side lose about 6e3 ulps of the state's slow
+// modes a step; this keeps the column solve out of the year's error budget
+// (B3, csrc/iage_block.cu).  cp and gp take the sweep factors.
+template <bool kDiag>
+__device__ inline void cn_column64(float* y, float* comp, double* cp,
+                                   double* gp, const float* kv,
+                                   const float* diag, float h, int j, int nz,
+                                   int ny, const Fields& g) {
+  const double hd = h, half = 0.5 * hd;
+  double cp_prev = 0.0, gp_prev = 0.0, kv_lo = 0.0, flux_up = 0.0;
+  double yk = y[j];
+  for (int k = 0; k < nz; ++k) {
+    const int idx = k * ny + j;
+    const double dzr = g.dz_r[k];
+    double kv_up = 0.0, y_dn = 0.0, flux_dn = 0.0;
+    if (k < nz - 1) {
+      kv_up = kv[idx];
+      y_dn = y[idx + ny];
+      flux_dn = kv_up * (y_dn - yk);
+    }
+    const double du = kv_up * dzr;
+    const double dl = kv_lo * dzr;
+    double dmain, rhs;
+    if constexpr (kDiag) {
+      const double d = diag[idx];
+      dmain = -(du + dl) + d;
+      rhs = hd * (dzr * (flux_dn - flux_up) + d * yk);
+    } else {
+      dmain = -(du + dl);
+      rhs = hd * (dzr * (flux_dn - flux_up));
+    }
+    const double a = -half * dl;
+    const double b = 1.0 - half * dmain;
+    const double c = -half * du;
+    const double inv = 1.0 / (b - a * cp_prev);
+    cp_prev = c * inv;
+    gp_prev = (rhs - a * gp_prev) * inv;
+    cp[idx] = cp_prev;
+    gp[idx] = gp_prev;
+    kv_lo = kv_up;
+    flux_up = flux_dn;
+    yk = y_dn;
+  }
+  double x_next = 0.0;
+  for (int k = nz - 1; k >= 0; --k) {
+    const int idx = k * ny + j;
+    const double x = gp[idx] - cp[idx] * x_next;
+    kahan_add(y, comp, idx, (float)x);
+    x_next = x;
+  }
+}
+
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of `device`, into *out
 inline int smem_optin(int device, int* out) {
   return (int)cudaDeviceGetAttribute(

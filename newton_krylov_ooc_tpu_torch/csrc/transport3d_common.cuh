@@ -1,16 +1,17 @@
-// Device code shared by the two 3D transport-year kernels:
-// csrc/transport3d_year.cu (B4) and csrc/transport3d_stream.cu (B5).
+// Device code shared by the 3D transport kernels: csrc/transport3d_year.cu
+// (B4) and the fused step of csrc/transport3d_stream_passes.cuh (B5, B6,
+// B7).
 //
 // The explicit tendency is ops/transport3d.py's transport_tend in flux
 // form: upwind3 (or centred) advection by the face transports t_e/t_n/t_t
 // and lateral diffusion by the conductances cond_e/cond_n, with the six
-// upwind3 selectors derived from `wet` (each is a pure shift of it).  B5's
-// flux divergence takes its neighbours through accessors that read tiles in
-// shared memory or device memory; B4 writes the same divergence out with
-// its periodic neighbours wrapped once per cell, which measured faster in
-// its instruction-bound tendency passes.  The vertical step, shared by
-// both, is the Crank-Nicolson increment of ops/imex.py (flux-form
-// right-hand side, Thomas along depth), added with Kahan compensation.
+// upwind3 selectors of `wet` (each is a pure shift of it).  Both kernels
+// build their divergence from face_flux: B4 per cell with its periodic
+// neighbours wrapped once, the fused step once per face from tiles in
+// shared memory.  B4's vertical step is cn_column below, the
+// Crank-Nicolson increment of ops/imex.py (flux-form right-hand side,
+// Thomas along depth) added with Kahan compensation; the fused step runs
+// the same arithmetic as it marches down the depth.
 
 #pragma once
 
@@ -25,10 +26,6 @@ struct Sample {
   int m0, m1;
   float w;
 };
-
-// the face fields a flux-form tendency reads; an accessor returns 0 for an
-// absent one
-enum Face { kFaceE, kFaceN, kFaceT, kFaceCondE, kFaceCondN, kFaces };
 
 // operand p at flat index idx, interpolated between months for a seasonal
 // operand (stride: the size of one month); 0 where absent
@@ -57,69 +54,6 @@ __device__ inline float face_flux(float trans, float cond, float up, float dn,
                                   int upwind3) {
   return trans * face_value(trans, up, dn, uu, dd, selp, seln, upwind3) +
          cond * (up - dn);
-}
-
-// The flux divergence at one cell, before recip_vol.  Accessors take
-// offsets (dk, dj, di) from the cell: yw(...) the stage state times wet and
-// w(...) wet, both 0 off the grid in depth and latitude and periodic in
-// longitude; face(f, dk, dj, di) face field f (dk in {0, 1}, dj in {0, -1},
-// di in {0, -1}).  The selectors of each face are the wet values of its
-// far cells.  south: the cell has a row below it (j > 0); bottom: a level
-// below it (k + 1 < nz).
-template <class YW, class W, class F>
-__device__ inline float flux_divergence(const YW& yw, const W& w, const F& face,
-                                        bool has_e, bool has_n, bool has_t,
-                                        bool south, bool bottom, int upwind3) {
-  const float y0 = yw(0, 0, 0);
-  float div = 0.0f;
-
-  if (has_e) {
-    const float ym2 = yw(0, 0, -2), ym1 = yw(0, 0, -1), yp1 = yw(0, 0, 1),
-                yp2 = yw(0, 0, 2);
-    const float wm2 = w(0, 0, -2), wm1 = w(0, 0, -1), wp1 = w(0, 0, 1),
-                wp2 = w(0, 0, 2);
-    // west face = east face of i-1: up = i-1, dn = i
-    const float flux_w = face_flux(face(kFaceE, 0, 0, -1),
-                                   face(kFaceCondE, 0, 0, -1), ym1, y0, ym2,
-                                   yp1, wm2, wp1, upwind3);
-    const float flux_e = face_flux(face(kFaceE, 0, 0, 0),
-                                   face(kFaceCondE, 0, 0, 0), y0, yp1, ym1,
-                                   yp2, wm1, wp2, upwind3);
-    div = div + flux_w - flux_e;
-  }
-
-  if (has_n) {
-    const float ym2 = yw(0, -2, 0), ym1 = yw(0, -1, 0), yp1 = yw(0, 1, 0),
-                yp2 = yw(0, 2, 0);
-    const float wm2 = w(0, -2, 0), wm1 = w(0, -1, 0), wp1 = w(0, 1, 0),
-                wp2 = w(0, 2, 0);
-    // south face = north face of j-1 (none below the first row)
-    const float flux_s =
-        south ? face_flux(face(kFaceN, 0, -1, 0), face(kFaceCondN, 0, -1, 0),
-                          ym1, y0, ym2, yp1, wm2, wp1, upwind3)
-              : 0.0f;
-    const float flux_n = face_flux(face(kFaceN, 0, 0, 0),
-                                   face(kFaceCondN, 0, 0, 0), y0, yp1, ym1,
-                                   yp2, wm1, wp2, upwind3);
-    div = div + flux_s - flux_n;
-  }
-
-  if (has_t) {
-    // the top face of level k couples up = k, dn = k-1, uu = k+1, dd = k-2
-    const float ym2 = yw(-2, 0, 0), ym1 = yw(-1, 0, 0), yp1 = yw(1, 0, 0),
-                yp2 = yw(2, 0, 0);
-    const float wm2 = w(-2, 0, 0), wm1 = w(-1, 0, 0), wp1 = w(1, 0, 0),
-                wp2 = w(2, 0, 0);
-    const float flux_top = face_flux(face(kFaceT, 0, 0, 0), 0.0f, y0, ym1, yp1,
-                                     ym2, wp1, wm2, upwind3);
-    // the top face of level k+1 (none below the bottom level)
-    const float flux_bot =
-        bottom ? face_flux(face(kFaceT, 1, 0, 0), 0.0f, yp1, y0, yp2, ym1, wp2,
-                           wm1, upwind3)
-               : 0.0f;
-    div = div + flux_bot - flux_top;
-  }
-  return div;
 }
 
 // one Kahan-compensated add of delta into y[idx]; returns the new y

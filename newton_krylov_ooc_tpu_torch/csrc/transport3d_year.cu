@@ -102,8 +102,8 @@ __device__ inline float coef_at(const Args& a, int slot, long idx, long stride,
 // f = tend(y) (stage 1) or tend(y + dt f1) (stage 2) + src + couple, at the
 // time sample s; one thread per (tracer, k, j, i).  The flux divergence is
 // written out here with the neighbours' periodic columns wrapped once per
-// cell: t3d::flux_divergence's accessor form, which B5 uses, measured 2.6%
-// slower a step in this pass.
+// cell: a form of it through neighbour accessors measured 2.6% slower a
+// step in this pass.
 template <bool kStage2>
 __global__ void __launch_bounds__(kThreads)
     tend_kernel(const float* __restrict__ y, const float* __restrict__ f1,

@@ -16,7 +16,9 @@ mesh, with windows extended by 2 j_steps exchanged halo columns a side.
 the top of that file) and raises if it cannot; on the CPU it is the plain
 version.  `build_iage_step_block_plain` is the plain version on any device:
 the TPU kernel's arithmetic, lane-packed as it is, its reciprocal-form PCR
-included.
+included, except that the CN column solve runs in float64, as the kernel's
+does: at 256 levels a float32 column solve (PCR or Thomas) loses about
+h |M| ~ 6e3 ulps of a rough state's slow modes a step (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -134,7 +136,8 @@ def _check_j(j_steps):
 def plain_block(consts, shape, dt, j_steps, *, device):
     """fn(y, comp, t_start) -> (y, comp) over (C, nz, nx) float32 tensors on
     `device`: the plain PyTorch version of the step block for packed
-    operands `consts` (numpy, pack_block_consts' tuple)"""
+    operands `consts` (numpy, pack_block_consts' tuple); its CN column
+    solves run in float64"""
     j_steps = _check_j(j_steps)
     device = resolve_device(device)
     c_dim, nz, nx = shape
@@ -168,19 +171,26 @@ def plain_block(consts, shape, dt, j_steps, *, device):
         coeff = coeff * torch.clamp(peclet, min=1.0)
         return (coeff * dzmr).repeat(1, c_dim)             # (nz-1, W)
 
-    def cn_incr(kv, y, h):
-        up = kv * dzr[:nz - 1]
-        lo = kv * dzr[1:]
-        du = torch.cat([up, zero_row], dim=0)
-        dl = torch.cat([zero_row, lo], dim=0)
-        dmain = -(du + dl) + diag
+    f64 = torch.float64
+    dzr64, diag64, zero_row64 = dzr.to(f64), diag.to(f64), zero_row.to(f64)
+    # the kernel takes dt as a float32
+    h64 = float(np.float32(dt))
+
+    def cn_incr(kv, y):
+        # in float64 from the float32 state and kv, rounded once
+        kv, y = kv.to(f64), y.to(f64)
+        up = kv * dzr64[:nz - 1]
+        lo = kv * dzr64[1:]
+        du = torch.cat([up, zero_row64], dim=0)
+        dl = torch.cat([zero_row64, lo], dim=0)
+        dmain = -(du + dl) + diag64
         flux = kv * (y[1:] - y[:-1])
-        m_v = dzr * (torch.cat([flux, zero_row], dim=0)
-                     - torch.cat([zero_row, flux], dim=0)) + diag * y
-        rhs = h * m_v
-        half = 0.5 * h
+        m_v = dzr64 * (torch.cat([flux, zero_row64], dim=0)
+                       - torch.cat([zero_row64, flux], dim=0)) + diag64 * y
+        rhs = h64 * m_v
+        half = 0.5 * h64
         return _pcr_recip_rows(-half * dl, 1.0 - half * dmain, -half * du,
-                               rhs)
+                               rhs).float()
 
     def tend(y):
         g_int = ca * y[:, :-1] + cb * y[:, 1:]
@@ -213,7 +223,7 @@ def plain_block(consts, shape, dt, j_steps, *, device):
             f1 = tend(y)
             f2 = tend(y + dt * f1)
             y, c = kahan(y, c, 0.5 * dt * (f1 + f2))
-            y, c = kahan(y, c, cn_incr(kv_of(t + dt), y, dt))
+            y, c = kahan(y, c, cn_incr(kv_of(t + dt), y))
         return unpack(y), unpack(c)
 
     return block

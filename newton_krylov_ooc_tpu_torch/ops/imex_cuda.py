@@ -78,7 +78,8 @@ INCLUDES = {
     "iage_block": ("imex_common.cuh",),
     "transport3d_sweep": ("transport3d_stream_passes.cuh",
                           "transport3d_common.cuh"),
-    "transport3d_block": ("transport3d_common.cuh",),
+    "transport3d_block": ("transport3d_stream_passes.cuh",
+                          "transport3d_common.cuh"),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

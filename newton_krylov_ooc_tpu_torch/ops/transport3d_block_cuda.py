@@ -23,13 +23,19 @@ is rebuilt from the window's wet mask instead of being passed.  Only the
 rows at least 4 k from the window's latitude edges come out exact.
 
 On a CUDA device fn launches csrc/transport3d_block.cu (the note at the top
-of that file gives the design) in ceil(k / j') launches of j' steps, each
-counted in `transport3d_block_launches`; on the CPU it is
-`block3d_steps_plain`.  The TPU kernel's VMEM budget (block3d_vmem_bytes,
-VmemBudgetError) has no counterpart: `block_plan` sizes the kernel's tiles
-from the card's shared memory and refuses, naming the limit, a block that
-cannot take one cell.  tend_chunk bounds the TPU kernel's live tracer width;
-it is checked here and changes nothing on the card.
+of that file gives the design): the k steps of a block in one cooperative
+launch, and through fn.many the blocks of up to MAX_SHARDS shards of one
+card in that launch, each launch counted in `transport3d_block_launches`;
+on the CPU it is `block3d_steps_plain`.  The kernel reads the upwind3
+selectors as a byte a cell packed from the window's wet mask
+(transport3d_stream_cuda.pack_selectors): a caller that steps the same
+window many times packs them once and passes them as `sel`, else fn packs
+them anew on every call.  The TPU kernel's VMEM budget
+(block3d_vmem_bytes, VmemBudgetError) has no counterpart: `block_schedule`
+lays the shards' tiles on the card's co-resident blocks and refuses,
+naming the limit, a step tile that does not fit its shared memory.
+tend_chunk bounds the TPU kernel's live tracer width; it is checked here
+and changes nothing on the card.
 
 `block3d_steps_plain` is the same function in plain PyTorch, in the inputs'
 dtype on their device: transport_tend with the selectors coef_stack holds
@@ -42,6 +48,7 @@ reciprocal form and the CUDA kernel Thomas.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,15 +57,16 @@ from .compute import resolve_device
 from .imex import _kahan_add
 from .imex_cuda import cuda_error, load_library
 from .transport3d import _shift, transport_tend
+from .transport3d_stream_cuda import _SLOTS as _STEP_SLOTS, pack_selectors
 from .tridiag import pcr_solve
 
 # launches of the CUDA block kernel in this process; callers reset it to 0
 # to count a run's launches
 transport3d_block_launches = 0
 
-# the kernel's operand slots, in csrc/transport3d_block.cu's order
+# the coefficient fields the kernel reads from coef_stack; its operand
+# slots are the fused step's (transport3d_stream_cuda._SLOTS)
 _FIELD_SLOTS = ("wet", "recip_vol", "t_e", "t_n", "t_t", "cond_e", "cond_n")
-_SLOTS = _FIELD_SLOTS + ("dlb", "dub", "diag", "src", "rates", "couple")
 _ABSENT, _DENSE, _FACTORED = 0, 1, 2
 
 
@@ -181,114 +189,105 @@ def block3d_steps_plain(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps, *,
                                                       half))
         return y, c
 
-    return fn
+    def plain_fn(y, c, coef_stack, dlb, dub, *extra, sel=None):
+        # sel, the kernel's packed selectors, is not read: the plain
+        # version takes the selectors coef_stack holds
+        return fn(y, c, coef_stack, dlb, dub, *extra)
+
+    plain_fn.many = lambda calls, sels=None: [fn(*args) for args in calls]
+    return plain_fn
 
 
 def _library():
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     return load_library("transport3d_block", {
-        "smem_bytes": ([c_int] * 4, ctypes.c_long),
+        "max_shards": ([], c_int),
+        "smem_bytes": ([c_int] * 2, ctypes.c_long),
+        "tile": ([ctypes.POINTER(c_int)] * 2, None),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
-        # y_in, c_in, y_out, c_out, fields, opts, t_dim, nz, rows, nlon,
-        # tracers, tile_y, tile_x, halo, j_steps, dt, stream
-        "launch": ([c_ptr] * 6 + [c_int] * 9 + [ctypes.c_float, c_ptr],
+        "occupancy": ([ctypes.c_long, ctypes.POINTER(c_int)], c_int),
+        # fields, bufs, opts, n_shards, t_dim, nz, rows, nlon, k_steps, dt,
+        # grid, stream
+        "launch": ([c_ptr] * 3 + [c_int] * 6 + [ctypes.c_float, c_int, c_ptr],
                    c_int),
     })
 
 
-def block_plan(smem_bytes, smem_limit, n_sm, nz, tracers, n_groups, rows,
-               nlon, k_steps, j_inner=None):
-    """(j_inner, tile_y, tile_x): the steps of one launch and one CUDA
-    block's owned rows and columns (tile_x = nlon: the whole longitude),
-    for a kernel whose block loading ly x lx columns of nz levels for
-    `tracers` tracers takes smem_bytes(nz, tracers, ly, lx) bytes, within
-    smem_limit; n_groups blocks share each tile (the tracer groups).
+# the shards one launch takes (csrc/transport3d_block.cu's kMaxShards)
+MAX_SHARDS = 16
 
-    Each candidate is costed as the cell-steps the busiest of the card's
-    n_sm SMs works through: ceil(blocks / n_sm) blocks a launch, (j' + 1)
-    per loaded cell of a block (its steps, and its load and store); the
-    cheapest wins, ties to more steps a launch and larger tiles; j_inner
-    fixes the steps a launch (cli/profile_block3d.py times each).  Raises
-    ValueError, naming the limit, when a block cannot take one owned cell
-    at one step a launch, or no tile takes j_inner steps."""
-    per_cell = smem_bytes(nz, tracers, 1, 2) - smem_bytes(nz, tracers, 1, 1)
-    fixed = smem_bytes(nz, tracers, 1, 1) - per_cell
-    max_cells = (smem_limit - fixed) // per_cell if per_cell else 0
 
-    def loaded(tile_y, tile_x, halo):
-        ly = min(rows, tile_y + 2 * halo)
-        lx = nlon if tile_x + 2 * halo >= nlon else tile_x + 2 * halo
-        return ly, lx
+class Schedule(NamedTuple):
+    """how B7 lays k steps of n_shards slabs on the card: the step tile's
+    shared memory, the tiles of one slab, the shards of each launch, each
+    launch's persistent blocks and the most tiles one of them takes a step"""
+    smem_bytes: int
+    tiles_y: int
+    tiles_x: int
+    groups: tuple
+    grids: tuple
+    tiles_per_block: tuple
 
-    ly, lx = loaded(1, 1, 4)
-    if ly * lx > max_cells:
-        need = smem_bytes(nz, tracers, ly, lx)
+
+def block_schedule(smem, tile, rows, nlon, n_shards, blocks_per_sm, n_sm,
+                   smem_limit, max_shards=MAX_SHARDS):
+    """the Schedule of B7 for n_shards (rows, nlon) slabs, whose step tile
+    (rows, columns) takes smem bytes of shared memory (both as the kernel's
+    library gives them): every shard's tiles in one grid of at most
+    blocks_per_sm x n_sm co-resident blocks (a cooperative launch cannot
+    take more), max_shards shards a launch.  smem_limit: the bytes one
+    block may use.  Raises ValueError, naming the limit, when one tile's
+    step does not fit."""
+    if smem > smem_limit:
         raise ValueError(
-            f"the transport3d_block kernel needs {need} bytes of shared "
-            f"memory for one cell of {nz} levels and "
-            f"{tracers} tracer(s) with its one-step halo, over the "
-            f"{smem_limit} bytes one block may use on this card; use "
-            "build_sharded_transport3d_year_stream (kernel B6), which "
-            "streams the slab from device memory"
+            f"the transport3d_block kernel needs {smem} bytes of shared "
+            f"memory a block, over the {smem_limit} bytes one block may use "
+            "on this card; split the family, or use "
+            "build_sharded_transport3d_year_stream (kernel B6)"
         )
-    best, best_key = None, None
-    for j_inner in ([j_inner] if j_inner else range(1, int(k_steps) + 1)):
-        halo = 4 * j_inner
-        launches = -(-int(k_steps) // j_inner)
-        widths = sorted({nlon} | set(range(1, nlon, 1 if nlon <= 64 else 8)))
-        for tile_x in widths:
-            lx = loaded(1, tile_x, halo)[1]
-            if tile_x + 2 * halo >= nlon and tile_x != nlon:
-                continue  # the whole longitude loads anyway
-            for tile_y in range(1, rows + 1):
-                ly = loaded(tile_y, tile_x, halo)[0]
-                if ly * lx > max_cells:
-                    break
-                blocks = (-(-rows // tile_y) * -(-nlon // tile_x)
-                          * n_groups)
-                cost = (launches * -(-blocks // n_sm) * ly * lx
-                        * (j_inner + 1))
-                key = (cost, -j_inner, -tile_y * tile_x)
-                if best_key is None or key < best_key:
-                    best, best_key = (j_inner, tile_y, tile_x), key
-    if best is None:
-        raise ValueError(
-            f"no tile of {nz} levels and {tracers} tracer(s) with a halo of "
-            f"{4 * j_inner} cells fits the {smem_limit} bytes one block may "
-            "use on this card; take fewer steps a launch"
-        )
-    return best
+    if blocks_per_sm < 1:
+        raise ValueError("no block of the transport3d_block kernel fits an SM")
+    tile_y, tile_x = tile
+    tiles_y, tiles_x = -(-rows // tile_y), -(-nlon // tile_x)
+    groups = tuple(min(max_shards, n_shards - start)
+                   for start in range(0, n_shards, max_shards))
+    grids = tuple(min(tiles_y * tiles_x * g, blocks_per_sm * n_sm)
+                  for g in groups)
+    per_block = tuple(-(-tiles_y * tiles_x * g // grid)
+                      for g, grid in zip(groups, grids))
+    return Schedule(smem, tiles_y, tiles_x, groups, grids, per_block)
 
 
-def _smem_limit(device):
-    """(the kernel's library, the shared memory one block may use on the
-    card)"""
+def _card(device, t_dim, coupled):
+    """(library, shared-memory limit, blocks an SM, SM count, the step
+    tile's shared memory, the tile) of the card"""
     lib = _library()
     limit = ctypes.c_int(0)
     err = lib.transport3d_block_smem_optin(device.index, ctypes.byref(limit))
     if err:
         raise cuda_error(lib, "transport3d_block", err,
                          "querying the shared-memory opt-in limit")
-    return lib, limit.value
-
-
-def card_plan(nz, t_dim, coupled, rows, nlon, k_steps, device, j_inner=None):
-    """block_plan for the card of CUDA `device`: its opt-in shared memory
-    and SM count; a block takes every tracer when coupled, else one"""
-    lib, limit = _smem_limit(device)
-    tracers = t_dim if coupled else 1
+    per_sm = ctypes.c_int(0)
+    smem = lib.transport3d_block_smem_bytes(t_dim, int(coupled))
+    rows, cols = ctypes.c_int(0), ctypes.c_int(0)
+    lib.transport3d_block_tile(ctypes.byref(rows), ctypes.byref(cols))
+    if smem <= limit.value:
+        with torch.cuda.device(device):
+            err = lib.transport3d_block_occupancy(smem, ctypes.byref(per_sm))
+        if err:
+            raise cuda_error(lib, "transport3d_block", err,
+                             "querying the kernel's occupancy")
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return block_plan(lib.transport3d_block_smem_bytes, limit, n_sm, nz,
-                      tracers, t_dim // tracers, rows, nlon, k_steps, j_inner)
+    return lib, limit.value, per_sm.value, n_sm, smem, (rows.value,
+                                                        cols.value)
 
 
 def build_block3d_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps, *,
                         has_diag=False, has_src=False, diag_fac=None,
-                        src_fac=None, couple=None, tend_chunk=None, device,
-                        plan=None):
-    """fn(y, c, coef_stack, dlb, dub[, diag][, src]) -> (y, c): k_steps x
-    [Heun(dt); CN(dt)] on one halo-extended block, through B7 on a CUDA
-    `device` and through block3d_steps_plain on the CPU.
+                        src_fac=None, couple=None, tend_chunk=None, device):
+    """fn(y, c, coef_stack, dlb, dub[, diag][, src], sel=None) -> (y, c):
+    k_steps x [Heun(dt); CN(dt)] on one halo-extended block, through B7 on
+    a CUDA `device` and through block3d_steps_plain on the CPU.
 
     The JAX function's arguments without vmem_cap and interpret:
       y, c: (t_dim, nz, rows_ext, nlon) float32, contiguous, on `device`
@@ -300,10 +299,15 @@ def build_block3d_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps, *,
           has_diag / has_src and no factored form (diag_fac / src_fac) is
           given
     couple: optional (t_dim, t_dim) surface coupling [1/s]; tend_chunk in
-    [1, t_dim] (checked only).  plan: (j_inner, tile_y, tile_x) instead of
-    block_plan's choice (CUDA only; tests use it to hold tiles and splits
-    against one block).  fn carries stream_diag, stream_src, tend_chunk,
-    smem_bytes (0 on the CPU) and plan (None on the CPU).
+    [1, t_dim] (checked only).  sel: optional pack_selectors(wet) of
+    coef_stack's wet mask, (nz, rows_ext, nlon) uint8 (read on the card
+    only; packed from coef_stack when None).  fn.many([(y, c, coef_stack,
+    dlb, dub[, diag][, src]), ...], sels=None) steps several blocks of the
+    same shape on one device at once -- on the card the slabs of up to
+    MAX_SHARDS shards in one launch, sels their selectors in order -- and
+    returns their (y, c) in order.  fn carries
+    stream_diag, stream_src, tend_chunk, smem_bytes (0 on the CPU),
+    max_shards (None on the CPU) and schedule(n_shards) (None on the CPU).
     """
     chunk = _chunk(tend_chunk, t_dim)
     stream_diag = has_diag and diag_fac is None
@@ -318,11 +322,12 @@ def build_block3d_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps, *,
             coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
             has_diag=has_diag, has_src=has_src, diag_fac=diag_fac,
             src_fac=src_fac, couple=couple)
-        fn.smem_bytes, fn.plan = 0, None
+        fn.smem_bytes, fn.max_shards = 0, None
+        fn.schedule = lambda n_shards: None
     else:
         fn = _kernel_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
                            has_diag, has_src, diag_fac, src_fac, couple_np,
-                           device, plan)
+                           device)
     fn.stream_diag = stream_diag
     fn.stream_src = stream_src
     fn.tend_chunk = chunk
@@ -330,8 +335,7 @@ def build_block3d_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps, *,
 
 
 def _kernel_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
-                  has_diag, has_src, diag_fac, src_fac, couple_np, device,
-                  plan):
+                  has_diag, has_src, diag_fac, src_fac, couple_np, device):
     coef_names = list(coef_names)
     f32 = torch.float32
     shape = (t_dim, nz, rows_ext, nlon)
@@ -342,26 +346,14 @@ def _kernel_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
     for name in ("wet", "recip_vol"):
         if name not in coef_names:
             raise ValueError(f"coef_names lacks {name!r}")
-    lib, limit = _smem_limit(device)
-    tracers = t_dim if couple_np is not None else 1
-    if plan is None:
-        plan = card_plan(nz, t_dim, couple_np is not None, rows_ext, nlon,
-                         k_steps, device)
-    j_inner, tile_y, tile_x = (int(v) for v in plan)
-    tile_x = min(tile_x, nlon)
-    if tile_x + 8 * j_inner >= nlon:
-        tile_x = nlon  # the halo would meet itself: load the whole longitude
-    halo = 4 * j_inner
-    ly = min(rows_ext, tile_y + 2 * halo)
-    lx = nlon if tile_x == nlon else tile_x + 2 * halo
-    smem = lib.transport3d_block_smem_bytes(nz, tracers, ly, lx)
-    if smem > limit:
-        raise ValueError(
-            f"the transport3d_block kernel's tiles of {tile_y} x {tile_x} at "
-            f"{j_inner} step(s) a launch need {smem} bytes of shared memory, "
-            f"over the {limit} bytes one block may use on "
-            f"{torch.cuda.get_device_name(device)}"
-        )
+    coupled = couple_np is not None
+    lib, limit, per_sm, n_sm, smem, tile = _card(device, t_dim, coupled)
+
+    def schedule(n_shards):
+        return block_schedule(smem, tile, rows_ext, nlon, n_shards, per_sm,
+                              n_sm, limit)
+
+    schedule(1)  # refuses a tile that does not fit
     rates = None
     if diag_fac is not None or src_fac is not None:
         zeros = [0.0] * t_dim
@@ -378,7 +370,6 @@ def _kernel_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
         _ABSENT if not has_diag else (_DENSE if stream_diag else _FACTORED),
         _ABSENT if not has_src else (_DENSE if stream_src else _FACTORED),
     ], np.int32)
-    n_launch = -(-k_steps // j_inner)
     dt32 = float(np.float32(dt))
 
     def check(name, arr, want):
@@ -393,8 +384,11 @@ def _kernel_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
                              f"{'' if arr.is_contiguous() else ' (strided)'}"
                              f", expected a contiguous {want}")
 
-    def fn(y, c, coef_stack, dlb, dub, *extra):
-        global transport3d_block_launches
+    def prepare(sel, y, c, coef_stack, dlb, dub, *extra):
+        """one shard's operand pointers and its five buffers: the input
+        state, two ping-pong states, the carry (a copy, stepped in place)
+        and the sweep factors' scratch (gp and cp); sel: the packed
+        selectors of coef_stack's wet mask, or None to pack them here"""
         if len(extra) != n_extra:
             raise ValueError(f"expected {3 + n_extra} coefficient operands, "
                              f"got {3 + len(extra)}")
@@ -405,39 +399,61 @@ def _kernel_steps(coef_names, nz, rows_ext, nlon, t_dim, dt, k_steps,
         check("dub", dub, shape[1:])
         fields = {name: coef_stack[coef_names.index(name)]
                   for name in _FIELD_SLOTS if name in coef_names}
-        fields.update(dlb=dlb, dub=dub, rates=rates, couple=couple32)
+        if sel is None:
+            sel = pack_selectors(fields["wet"])
+        elif (not isinstance(sel, torch.Tensor) or sel.dtype != torch.uint8
+              or sel.device != device or tuple(sel.shape) != shape[1:]
+              or not sel.is_contiguous()):
+            raise ValueError(f"sel must be a contiguous uint8 {shape[1:]} "
+                             f"tensor on {device} (pack_selectors)")
+        fields.update(dlb=dlb, dub=dub, rates=rates, couple=couple32, sel=sel)
         for pos, name in enumerate(
                 [n for n, on in (("diag", stream_diag), ("src", stream_src))
                  if on]):
             check(name, extra[pos], shape)
             fields[name] = extra[pos]
-        ptrs = (ctypes.c_void_p * len(_SLOTS))(*(
-            None if fields.get(name) is None else fields[name].data_ptr()
-            for name in _SLOTS))
-        outs = (torch.empty_like(y), torch.empty_like(c))
-        scratch = ((torch.empty_like(y), torch.empty_like(c))
-                   if n_launch > 1 else None)
-        src_y, src_c = y, c
+        bufs = (y, torch.empty_like(y), torch.empty_like(y), c.clone(),
+                y.new_empty((2,) + shape))
+        return fields, bufs
+
+    def many(calls, sels=None):
+        global transport3d_block_launches
+        sels = [None] * len(calls) if sels is None else list(sels)
+        if len(sels) != len(calls):
+            raise ValueError(f"{len(sels)} selector fields for "
+                             f"{len(calls)} calls")
+        prepared = [prepare(sel, *args) for sel, args in zip(sels, calls)]
+        sched = schedule(len(prepared))
+        start = 0
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for r in range(n_launch):
-                steps = min(j_inner, k_steps - r * j_inner)
-                # the last launch lands in outs
-                dst_y, dst_c = (outs if (n_launch - 1 - r) % 2 == 0
-                                else scratch)
+            for group, grid in zip(sched.groups, sched.grids):
+                part = prepared[start:start + group]
+                start += group
+                ptrs = (ctypes.c_void_p * (len(_STEP_SLOTS) * group))(*(
+                    None if fields.get(name) is None
+                    else fields[name].data_ptr()
+                    for fields, _ in part for name in _STEP_SLOTS))
+                bufs = (ctypes.c_void_p * (5 * group))(*(
+                    buf.data_ptr() for _, five in part for buf in five))
                 err = lib.transport3d_block_launch(
-                    src_y.data_ptr(), src_c.data_ptr(), dst_y.data_ptr(),
-                    dst_c.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
-                    opts.ctypes.data, t_dim, nz, rows_ext, nlon, tracers,
-                    tile_y, tile_x, 4 * steps, steps, dt32, stream)
+                    ctypes.cast(ptrs, ctypes.c_void_p),
+                    ctypes.cast(bufs, ctypes.c_void_p), opts.ctypes.data,
+                    group, t_dim, nz, rows_ext, nlon, k_steps, dt32, grid,
+                    stream)
                 if err:
                     raise cuda_error(lib, "transport3d_block", err,
-                                     "transport3d_block kernel launch")
+                                     "transport3d_block cooperative launch")
                 transport3d_block_launches += 1
-                src_y, src_c = dst_y, dst_c
-        return outs
+        # the end of k steps lands in the first ping-pong state when k is odd
+        return [(bufs[1] if k_steps % 2 else bufs[2], bufs[3])
+                for _, bufs in prepared]
 
+    def fn(y, c, coef_stack, dlb, dub, *extra, sel=None):
+        return many([(y, c, coef_stack, dlb, dub, *extra)], [sel])[0]
+
+    fn.many = many
+    fn.schedule = schedule
     fn.smem_bytes = int(smem)
-    fn.plan = (j_inner, tile_y, tile_x)
-    fn.n_launch = n_launch
+    fn.max_shards = MAX_SHARDS
     return fn

@@ -19,7 +19,10 @@ float dtype, cast to float32.  Its modes:
 
 One call enqueues the whole year on PyTorch's current stream from a C loop
 in csrc/transport3d_stream.cu (the note at the top of that file gives the
-design): 1 + 2 n launches, counted as one in `transport3d_stream_launches`.
+design): 1 + n launches, one fused step each after the opening CN half
+step, counted as one in `transport3d_stream_launches`.  `pack_selectors`
+packs the wet mask and its six upwind3 selectors into the byte a cell the
+kernel reads.
 block_rows, prefetch, steps_per_sweep and tend_chunk choose the TPU
 kernel's schedule and do not change its result; they are checked as the
 JAX builder checks them, and the Hopper kernel picks its own tiling.
@@ -46,7 +49,11 @@ import torch
 
 from .compute import resolve_device
 from .imex_cuda import cuda_error, load_library
-from .transport3d import STENCIL_OFFSETS, transport_stencil_coef
+from .transport3d import (
+    STENCIL_OFFSETS,
+    transport_stencil_coef,
+    upwind3_selectors,
+)
 from .transport3d_cuda import (
     SEC_PER_YEAR,
     _check_operands,
@@ -60,15 +67,16 @@ from .transport3d_cuda import (
 # the kernel's operand slots, in csrc/transport3d_stream.cu's order
 _SLOTS = ("wet", "recip_vol", "recip_area", "recip_dz", "t_e", "t_n", "t_t",
           "cond_e", "cond_n", "st", "kv", "dz_r", "diag", "src", "rates",
-          "couple")
+          "couple", "sel", "dlb", "dub")
 _FACES = ("t_e", "t_n", "t_t", "cond_e", "cond_n")
 # csrc/transport3d_stream.cu's Mode and Rate
 _FLUX, _STENCIL_F32, _STENCIL_BF16 = 0, 1, 2
 _RATE_NONE, _RATE_DENSE, _RATE_FACTORED = 0, 1, 2
 
 # float32 operations per cell, tracer and step that the year's arithmetic
-# needs, counted once per cell from csrc/transport3d_stream.cu: two
-# tendencies (flux form 81 and 83, as B4's, stage state included; stencil
+# needs, counted once per cell from csrc/transport3d_stream.cu, each face
+# once (three faces a cell and stage): two tendencies (flux form 81 and 83,
+# as B4's, stage state included; stencil
 # form a multiply per offset, an add per further offset and the source,
 # 26 each, plus the stage state's 2), the Heun Kahan add (6) and the CN
 # Thomas solve with its Kahan add (28)
@@ -82,8 +90,27 @@ transport3d_stream_launches = 0
 
 def cuda_launches_per_year(n_steps):
     """CUDA kernel launches one year enqueues: the first CN half step, then
-    per step the fused Heun pass and the column pass"""
-    return 1 + 2 * int(n_steps)
+    one fused step (Heun and CN) a step"""
+    return 1 + int(n_steps)
+
+
+# the bits of the selector byte, csrc/transport3d_stream_passes.cuh's SelBit
+SEL_BITS = ("wet", "sel3p_e", "sel3n_e", "sel3p_n", "sel3n_n", "sel3p_t",
+            "sel3n_t")
+
+
+def pack_selectors(wet):
+    """the byte a cell the fused step reads for its upwind3 faces: bit 0 the
+    wet mask, bits 1-6 the far-cell selectors of the cell's east, north and
+    top faces (ops/transport3d.py::upwind3_selectors: shifts of `wet`,
+    periodic in longitude, zero past the grid in latitude and depth), in
+    SEL_BITS order.  wet: (nz, nlat, nlon) 0/1 tensor; returns uint8 on its
+    device."""
+    fields = {"wet": wet, **upwind3_selectors(wet)}
+    out = torch.zeros(wet.shape, dtype=torch.uint8, device=wet.device)
+    for pos, name in enumerate(SEL_BITS):
+        out |= (fields[name] != 0).to(torch.uint8) << pos
+    return out
 
 
 def _factor_rate_field(arr, wet):
@@ -172,17 +199,17 @@ def _library():
     return load_library("transport3d_stream", {
         "smem_bytes": ([c_int] * 2, ctypes.c_long),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
-        # y_pp, comp, cp, gp, fields, seasonal, opts, m0, m1, w, t_dim, nz,
+        # y_pp, comp, factors, fields, seasonal, opts, m0, m1, w, t_dim, nz,
         # nlat, nlon, n_steps, dt, stream
-        "launch": ([c_ptr] * 10 + [c_int] * 5 + [ctypes.c_float, c_ptr],
+        "launch": ([c_ptr] * 9 + [c_int] * 5 + [ctypes.c_float, c_ptr],
                    c_int),
     })
 
 
 def _check_smem(lib, t_dim, coupled, device):
-    """raise ValueError when pass (a)'s shared memory (its rings, and the
-    surface stage states of a coupled family) exceeds what one block may
-    use on the card"""
+    """raise ValueError when a step block's shared memory (its rings, face
+    tiles and carries, and the surface stage states of a coupled family)
+    exceeds what one block may use on the card"""
     smem = lib.transport3d_stream_smem_bytes(t_dim, int(coupled))
     limit = ctypes.c_int(0)
     err = lib.transport3d_stream_smem_optin(device.index, ctypes.byref(limit))
@@ -192,8 +219,9 @@ def _check_smem(lib, t_dim, coupled, device):
     if smem > limit.value:
         raise ValueError(
             f"the transport3d_stream kernel needs {smem} bytes of shared "
-            f"memory a block for {t_dim} coupled tracers, over the "
-            f"{limit.value} bytes one block may use on "
+            f"memory a block for {t_dim} tracers"
+            f"{' (coupled)' if coupled else ''}, over the {limit.value} "
+            f"bytes one block may use on "
             f"{torch.cuda.get_device_name(device)}; split the family"
         )
 
@@ -208,7 +236,9 @@ def pack_operands(coef32, kv32, dz_r32, diag, src, t_dim, diag_fac, src_fac,
     diag_fac / src_fac, the _factor_rate_field factors, or none at all);
     recip_area, recip_dz: the factors the kernel rebuilds recip_vol from,
     or None to read it; st: the stencil fields (float32 or bfloat16) in
-    stencil mode, else None; couple32: the (T, T) coupling or None."""
+    stencil mode, else None; couple32: the (T, T) coupling or None.  The
+    selector bytes (pack_selectors) come from coef32["wet"]; the CN bands
+    dlb, dub are absent (B7's wrapper sets them)."""
     rates = None
     if diag_fac is not None or src_fac is not None:
         rows = np.zeros((4, t_dim), np.float32)
@@ -232,6 +262,9 @@ def pack_operands(coef32, kv32, dz_r32, diag, src, t_dim, diag_fac, src_fac,
         "src": src,
         "rates": rates,
         "couple": couple32,
+        "sel": pack_selectors(coef32["wet"]),
+        "dlb": None,
+        "dub": None,
     }
     operands = {name: None if arr is None else arr.contiguous()
                 for name, arr in operands.items()}
@@ -256,14 +289,14 @@ def pack_operands(coef32, kv32, dz_r32, diag, src, t_dim, diag_fac, src_fac,
 
 
 def _hbm_bytes_per_step(operands, t_dim, n, seasonal):
-    """bytes one step of the port's design moves if each pass reads each
-    operand it uses once and writes each result once (the halo's re-reads
-    in pass (a) counted as cache hits): pass (a) reads the state and the
-    Kahan carry, the wet mask, the coefficient fields (both months of a
-    seasonal one) and a dense src, and writes the new state and carry;
-    pass (b) reads and writes the state and the carry, writes and reads the
-    two sweep-factor buffers, and reads kv (both months if seasonal), a
-    dense diag and, for a factored diag, the wet mask"""
+    """bytes one step of the port's design moves if it reads each operand
+    it uses once and writes each result once (the halo's re-reads counted
+    as cache hits): the march reads the state, the Kahan carry, the
+    selector bytes, the coefficient fields (both months of a seasonal one),
+    kv, a dense src and diag and, for a factored diag or recip_vol, the wet
+    mask, and writes the Heun state, the carry and the sweep factors cp and
+    gp; the back substitution reads those four and writes the state and
+    carry"""
     def size(name):
         arr = operands[name]
         if arr is None:
@@ -274,12 +307,12 @@ def _hbm_bytes_per_step(operands, t_dim, n, seasonal):
         return nbytes
 
     state = 4 * t_dim * n
-    pass_a = 4 * state + size("wet") + size("src") + sum(
-        size(name) for name in ("recip_vol", "recip_area", "recip_dz", *_FACES,
-                                "st"))
-    pass_b = 8 * state + size("kv") + size("diag") + (
-        size("wet") if operands["rates"] is not None else 0)
-    return pass_a + pass_b
+    factored = (operands["rates"] is not None
+                or operands["recip_area"] is not None)
+    return (12 * state + size("sel") + size("kv") + size("src")
+            + size("diag") + (size("wet") if factored else 0)
+            + sum(size(name) for name in ("recip_vol", "recip_area",
+                                          "recip_dz", *_FACES, "st")))
 
 
 def build_transport3d_year_stream(
@@ -307,8 +340,8 @@ def build_transport3d_year_stream(
     dense rate field is read, not rebuilt from its factors); operands (the
     tensors the kernel reads, kept alive with the year); hbm_bytes_per_step
     and est_flops_per_step, the port's own counts (_hbm_bytes_per_step;
-    the operations the year's arithmetic needs per step, once per cell --
-    pass (a) recomputes stage 1 on 1.41x the cells on top of it).
+    the operations the year's arithmetic needs per step, once per cell and
+    face -- the step recomputes stage 1 on 1.41x the cells on top of it).
     """
     device = resolve_device(device)
     kv32 = _tensor(kv, torch.float32, device)
@@ -460,12 +493,13 @@ def build_transport3d_year_stream(
             y_pp = torch.empty((2,) + shape, dtype=f32, device=device)
             y_pp[0].copy_(y0)
             comp = torch.zeros(shape, dtype=f32, device=device)
-            sweep = torch.empty((2,) + shape, dtype=f32, device=device)
+            # the sweep factors gp and cp
+            factors = torch.empty((2,) + shape, dtype=f32, device=device)
             with torch.cuda.device(device):
                 stream = torch.cuda.current_stream(device).cuda_stream
                 err = lib.transport3d_stream_launch(
-                    y_pp.data_ptr(), comp.data_ptr(), sweep[0].data_ptr(),
-                    sweep[1].data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
+                    y_pp.data_ptr(), comp.data_ptr(), factors.data_ptr(),
+                    ctypes.cast(ptrs, ctypes.c_void_p),
                     seasonal_flags.ctypes.data, opts.ctypes.data,
                     m0.ctypes.data, m1.ctypes.data, w.ctypes.data, t_dim, nz,
                     nlat, nlon, n_steps, dt, stream,

@@ -168,17 +168,26 @@ def _library():
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     return load_library("transport3d_sweep", {
         "smem_bytes": ([c_int] * 2, ctypes.c_long),
+        "tile": ([ctypes.POINTER(c_int)] * 2, None),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
-        # y_a, y_b, comp, cp, gp, fields, seasonal, opts, m0, m1, w, t_dim,
+        # y_a, y_b, comp, factors, fields, seasonal, opts, m0, m1, w, t_dim,
         # nz, rows, nlon, step0, k_steps, first, last, dt, stream
-        "launch": ([c_ptr] * 11 + [c_int] * 8 + [ctypes.c_float, c_ptr],
+        "launch": ([c_ptr] * 10 + [c_int] * 8 + [ctypes.c_float, c_ptr],
                    c_int),
     })
 
 
+def step_tile():
+    """the fused step's tile (rows, columns), from the kernel's library
+    (built first if needed)"""
+    rows, cols = ctypes.c_int(0), ctypes.c_int(0)
+    _library().transport3d_sweep_tile(ctypes.byref(rows), ctypes.byref(cols))
+    return rows.value, cols.value
+
+
 def _check_smem(lib, t_dim, coupled, device):
-    """raise ValueError when pass (a)'s shared memory exceeds what one block
-    may use on the card"""
+    """raise ValueError when a step block's shared memory exceeds what one
+    block may use on the card"""
     smem = lib.transport3d_sweep_smem_bytes(t_dim, int(coupled))
     limit = ctypes.c_int(0)
     err = lib.transport3d_sweep_smem_optin(device.index, ctypes.byref(limit))
@@ -188,7 +197,7 @@ def _check_smem(lib, t_dim, coupled, device):
     if smem > limit.value:
         raise ValueError(
             f"the transport3d_sweep kernel needs {smem} bytes of shared "
-            f"memory a block for {t_dim} coupled tracers, over the "
+            f"memory a block for {t_dim} tracers, over the "
             f"{limit.value} bytes one block may use on "
             f"{torch.cuda.get_device_name(device)}; split the family"
         )
@@ -247,8 +256,8 @@ def build_stream_sweep(coef, kv, dz_r, diag, src, dt, k_steps, samples, *,
                  np.ascontiguousarray(samples[1], np.int32),
                  np.ascontiguousarray(samples[2], np.float32))
     shape = (t_dim, nz, rows, nlon)
-    cp = torch.empty(shape, dtype=f32, device=device)
-    gp = torch.empty(shape, dtype=f32, device=device)
+    # the sweep factors gp and cp
+    factors = torch.empty((2,) + shape, dtype=f32, device=device)
 
     def sweep(y, c, y_spare, step0, first=False, last=False):
         global transport3d_sweep_launches
@@ -257,8 +266,9 @@ def build_stream_sweep(coef, kv, dz_r, diag, src, dt, k_steps, samples, *,
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.transport3d_sweep_launch(
-                y.data_ptr(), y_spare.data_ptr(), c.data_ptr(), cp.data_ptr(),
-                gp.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
+                y.data_ptr(), y_spare.data_ptr(), c.data_ptr(),
+                factors.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p),
                 seasonal.ctypes.data, opts.ctypes.data, m0.ctypes.data,
                 m1.ctypes.data, w.ctypes.data, t_dim, nz, rows, nlon,
                 int(step0), int(k_steps), int(first), int(last), float(dt),

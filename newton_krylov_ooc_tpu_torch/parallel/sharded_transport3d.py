@@ -74,7 +74,11 @@ from ..ops.transport3d_cuda import (
     season_samples,
     year_frac,
 )
-from ..ops.transport3d_stream_cuda import _FACES, _factor_rate_field
+from ..ops.transport3d_stream_cuda import (
+    _FACES,
+    _factor_rate_field,
+    pack_selectors,
+)
 from ..ops.transport3d_sweep_cuda import build_stream_sweep, stream_sweep_plain
 from ..utils.regions import region_mean_weights
 from .mesh import gather_grid, grid_devices, shard_grid
@@ -642,7 +646,8 @@ def build_sharded_transport3d_year_blocked(
 ):
     """the blocked sharded 3D year: k-step blocks (kernel B7,
     ops/transport3d_block_cuda.py, on a CUDA shard; its plain version on a
-    CPU shard) between latitude halo exchanges of 4 k rows.
+    CPU shard) between latitude halo exchanges of 4 k rows.  The shards of
+    one card take each block together, in one B7 launch.
 
     The port of the JAX package's build_sharded_transport3d_year_pallas,
     arguments as its, without `interpret` (the mesh decides where each
@@ -727,6 +732,9 @@ def build_sharded_transport3d_year_blocked(
                   if arr is not None]
     dl_b, du_b = _cn_bands(kv_np, _np64(dz_r), nz, nlat, nlon)
     devs = [row[0] for row in grid_devices(mesh)]
+    on_dev = {}  # each device's shards, in order
+    for s, dev in enumerate(devs):
+        on_dev.setdefault(dev, []).append(s)
     blk_kw = dict(has_diag=has_diag, has_src=has_src, diag_fac=diag_fac,
                   src_fac=src_fac, couple=couple_np)
     steppers = {}
@@ -769,6 +777,9 @@ def build_sharded_transport3d_year_blocked(
 
         shards.append({
             "dev": dev, "stack": stack, "dlb": dlb, "dub": dub,
+            # B7's selector bytes, packed once for the year's every block
+            "sel": None if plain else pack_selectors(
+                stack[coef_names.index("wet")]),
             "extras": extras, "wet_i": wet_i,
             "dlb_i": dlb[:, rows_i], "dub_i": dub[:, rows_i],
             "coef_2": {name: stack[i][:, rows_2]
@@ -816,10 +827,14 @@ def build_sharded_transport3d_year_blocked(
         for ind in [0] * m_blocks + [1] * bool(r_steps):
             _exchange(slabs, halo, nl_loc)
             _exchange(carries, halo, nl_loc)
-            for s, sh in enumerate(shards):
-                slabs[s], carries[s] = steppers[sh["dev"]][ind](
-                    slabs[s], carries[s], sh["stack"], sh["dlb"], sh["dub"],
-                    *sh["extras"])
+            # the shards of one device step together (on a card: one launch)
+            for dev, members in on_dev.items():
+                outs = steppers[dev][ind].many([
+                    (slabs[s], carries[s], shards[s]["stack"],
+                     shards[s]["dlb"], shards[s]["dub"], *shards[s]["extras"])
+                    for s in members], [shards[s]["sel"] for s in members])
+                for s, (slab, carry) in zip(members, outs):
+                    slabs[s], carries[s] = slab, carry
         # the final Heun, one 2-row exchange per stage, then CN(dt/2)
         _exchange(slabs, halo, nl_loc, 2)
         ys = [slab[:, :, rows_i] for slab in slabs]
@@ -846,11 +861,15 @@ def build_sharded_transport3d_year_blocked(
     year.blocks = steppers
     year.smem_bytes = max((getattr(blk, "smem_bytes", 0) for blk in blocks),
                           default=0)
-    # B7 launches a year (0 where the shards run the plain version)
+    # B7 launches a year: a block's shards of one card take
+    # ceil(shards / max_shards) launches (0 where they run the plain version)
     year.launches = sum(
-        m_blocks * getattr(blk_k, "n_launch", 0)
-        + getattr(blk_r, "n_launch", 0)
-        for blk_k, blk_r in (steppers[dev] for dev in devs))
+        (m_blocks * bool(blk_k) + bool(blk_r)) * (
+            -(-len(on_dev[dev]) // blk.max_shards)
+            if getattr(blk, "max_shards", None) else 0)
+        for dev in on_dev
+        for blk_k, blk_r in [steppers[dev]]
+        for blk in [blk_k or blk_r])
     # per block, each interior boundary moves `halo` rows of the state and
     # of the carry each way; the final Heun's two exchanges move 2 rows of
     # the state each way

@@ -675,7 +675,8 @@ def _blocked_aging(aging, b_dim, tr_dim, nz_dim):
 def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
                    n_steps, block_steps, make_block):
     """the blocked sharded year with step blocks from
-    make_block(consts, shape, dt, j_steps, device=)"""
+    make_block(consts, shape, dt, j_steps, device=); its CN half steps
+    solve in float64"""
     n_module, n_space = mesh.shape["module"], mesh.shape["space"]
     nz, ny = len(depth), len(ypos)
     diag = np.asarray(diag, np.float32)
@@ -779,8 +780,11 @@ def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
             sh["wvel"], t)
 
     def cn_half(sh, y, c, t):
+        # in float64, as the step blocks solve their columns
+        f64 = torch.float64
         return _kahan_add(y, c, cn_vertical_increment(
-            kv_own(sh, t), sh["diag"], sh["dz_r"], y, 0.5 * dt))
+            kv_own(sh, t).to(f64), sh["diag"].to(f64), sh["dz_r"].to(f64),
+            y.to(f64), 0.5 * dt).float())
 
     def tend1(sh, y_ext):
         g = sh["ca"] * y_ext[..., :-1] + sh["cb"] * y_ext[..., 1:]
@@ -841,7 +845,10 @@ def build_sharded_year_blocked(mesh, depth, ypos, modelinfo, diag, aging,
     year decomposes as the single-device year does (interior Strang
     half-steps merged): a leading CN(dt/2), (n_steps-1) x [Heun; CN(dt)] in
     blocks of k plus a remainder block, and a final Heun (one-column halo)
-    and trailing CN(dt/2) in plain PyTorch.  Block start times are float32,
+    and trailing CN(dt/2) in plain PyTorch.  Every CN column solve, in the
+    blocks and the half steps, runs in float64 from the float32 state (at
+    256 levels a float32 solve loses the slow modes of a rough state).
+    Block start times are float32,
     and so is each step's time inside a block: an ulp in the mixing
     profile's time grows about 1e3-fold through its exponential.
 

@@ -4,7 +4,8 @@ against the JAX package, on the CPU: kernel B7's plain version
 build_block3d_steps in interpret mode on a seeded window; the blocked
 year (parallel/sharded_transport3d.py::build_sharded_transport3d_year_blocked)
 on CPU meshes against JAX's float64 scan year and JAX's pallas block year;
-every refusal in JAX's words; block_plan's tiles; and the B1v1 wrapper's
+every refusal in JAX's words; block_schedule's tiles and launches; and the
+B1v1 wrapper's
 CPU year against JAX's build_iage_year_pallas in interpret mode.
 
 A port mesh of CPU shards is make_mesh(1, n, devices=["cpu"] * n); the JAX
@@ -225,7 +226,7 @@ def test_block_plain_matches_jax_kernel(window, k, rates, coupled, chunk):
     fn = b7.build_block3d_steps(w["names"], NZ, WIN_ROWS, NLON, T, w["dt"], k,
                                 tend_chunk=chunk, device="cpu", **kw)
     assert fn.stream_diag == (rates == "dense") == fn.stream_src
-    assert fn.tend_chunk == (chunk or T) and fn.plan is None
+    assert fn.tend_chunk == (chunk or T) and fn.schedule(1) is None
     y_p, c_p = fn(*(torch.as_tensor(a, dtype=torch.float32) for a in ops))
     y_64, _ = fn(*(torch.as_tensor(a) for a in ops))
     assert y_p.dtype == torch.float32 and y_64.dtype == torch.float64
@@ -264,44 +265,84 @@ def test_block_cuda_request_never_falls_back(window, monkeypatch):
                                device="cuda")
 
 
-# -- (b) block_plan: the kernel's tiles and steps a launch ----------------------
+# -- (b) block_schedule: the persistent blocks' tiles and the shards a launch ---
+
+H100_SMEM, H100_SMS = 232448, 132
+# the fused step's tile and shared memory, as the kernel's library gives
+# them (tests/test_torch_kernels.py holds the library to these on the card):
+# 25,608 floats of rings, face tiles and carries, and when coupled a
+# tracer's surface stage states at 512 columns
+STEP_TILE = (16, 32)
 
 
-def _smem(nz, tracers, ly, lx):
-    """csrc/transport3d_block.cu::transport3d_block_smem_bytes"""
-    return 16 * tracers * nz * ly * lx
+def _step_smem(t_dim, coupled):
+    return 4 * (25608 + (512 * t_dim if coupled else 0))
 
 
-@pytest.mark.parametrize("nz, tracers, rows, nlon, k", [
-    (3, 2, 416, 320, 4),   # gx1's horizontal extent, the coupled pair
-    (3, 2, 80, 320, 4),    # one of 8 shards of it
-    (60, 1, 392, 320, 1),  # gx1 at full depth, one shard
-    (60, 1, 112, 320, 2),  # one of 4 shards of it
-    (4, 2, 16, 6, 3),      # a toy window: the whole longitude
+@pytest.mark.parametrize("t_dim, coupled, rows, nlon, n_shards, per_sm", [
+    (2, True, 416, 320, 1, 2),    # gx1's horizontal extent, the coupled pair
+    (2, True, 80, 320, 8, 2),     # eight shards of it, one launch
+    (1, False, 392, 320, 1, 2),   # gx1 at full depth, one shard
+    (1, False, 112, 320, 4, 2),   # four shards of it
+    (2, True, 16, 6, 3, 4),       # a toy window: one ragged tile a shard
+    (1, False, 80, 320, 20, 2),   # more shards than one launch takes
+    (4, True, 12, 40, 1, 1),      # one tile row and a ragged column
 ])
-def test_block_plan_fits_and_covers(nz, tracers, rows, nlon, k):
-    """the plan fits the H100's opt-in shared memory, takes at most k steps
-    a launch, and its tiles cover the window"""
-    limit, n_sm = 232448, 132
-    j_inner, tile_y, tile_x = b7.block_plan(_smem, limit, n_sm, nz, tracers,
-                                            1, rows, nlon, k)
-    assert 1 <= j_inner <= k and 1 <= tile_y <= rows and 1 <= tile_x <= nlon
-    halo = 4 * j_inner
-    ly = min(rows, tile_y + 2 * halo)
-    lx = nlon if tile_x == nlon else tile_x + 2 * halo
-    assert tile_x == nlon or lx < nlon
-    assert _smem(nz, tracers, ly, lx) <= limit
+def test_block_schedule_fits_and_covers(t_dim, coupled, rows, nlon, n_shards,
+                                        per_sm):
+    """the schedule fits the H100's opt-in shared memory, never launches
+    more blocks than fit at once, puts every shard in some launch and, in
+    the kernel's walk over tiles (block b takes tiles b, b + grid, ...),
+    every tile of every shard once a step"""
+    smem = _step_smem(t_dim, coupled)
+    sched = b7.block_schedule(smem, STEP_TILE, rows, nlon, n_shards, per_sm,
+                              H100_SMS, H100_SMEM)
+    tile_y, tile_x = STEP_TILE
+    assert sched.smem_bytes == smem
+    assert sched.smem_bytes <= H100_SMEM
+    assert sched.tiles_y * tile_y >= rows > (sched.tiles_y - 1) * tile_y
+    assert sched.tiles_x * tile_x >= nlon > (sched.tiles_x - 1) * tile_x
+    assert sum(sched.groups) == n_shards
+    assert all(1 <= g <= b7.MAX_SHARDS for g in sched.groups)
+    per_shard = sched.tiles_y * sched.tiles_x
+    for group, grid, most in zip(sched.groups, sched.grids,
+                                 sched.tiles_per_block):
+        assert 1 <= grid <= per_sm * H100_SMS
+        walks = [list(range(b, per_shard * group, grid)) for b in range(grid)]
+        assert sorted(t for walk in walks for t in walk) == list(
+            range(per_shard * group))
+        assert max(len(walk) for walk in walks) == most
 
 
-def test_block_plan_refuses_what_one_block_cannot_take():
-    """one owned cell of 60 levels and four coupled tracers with its
-    one-step halo is over the card's limit: refused, naming the limit and
-    the streaming year; two steps a launch at 60 levels fit no tile"""
+def test_block_schedule_refuses_what_one_block_cannot_take():
+    """the surface stage states of 96 coupled tracers overflow a step
+    tile's shared memory: refused, naming the limit and the streaming
+    year; four coupled tracers fit, and so do 96 uncoupled ones"""
+    def schedule(t_dim, coupled, per_sm):
+        return b7.block_schedule(_step_smem(t_dim, coupled), STEP_TILE, 392,
+                                 320, 1, per_sm, H100_SMS, H100_SMEM)
+
     with pytest.raises(ValueError, match="232448 bytes.*year_stream"):
-        b7.block_plan(_smem, 232448, 132, 60, 4, 1, 392, 320, 1)
-    assert b7.block_plan(_smem, 232448, 132, 60, 1, 1, 112, 320, 2)[0] == 1
-    with pytest.raises(ValueError, match="halo of 8 cells"):
-        b7.block_plan(_smem, 232448, 132, 60, 1, 1, 112, 320, 2, j_inner=2)
+        schedule(96, True, 2)
+    assert schedule(4, True, 1).smem_bytes <= H100_SMEM
+    assert schedule(96, False, 1).smem_bytes <= H100_SMEM
+    with pytest.raises(ValueError, match="fits an SM"):
+        schedule(1, False, 0)
+
+
+@pytest.mark.parametrize("over", [-1, 0, 1])
+def test_block_schedule_takes_the_limit_exactly(over):
+    """a step tile of exactly the opt-in limit fits; one byte more is
+    refused, naming both numbers"""
+    smem = H100_SMEM + over
+    if over > 0:
+        with pytest.raises(ValueError, match=f"{smem} bytes.*{H100_SMEM}"):
+            b7.block_schedule(smem, STEP_TILE, 80, 320, 2, 1, H100_SMS,
+                              H100_SMEM)
+    else:
+        sched = b7.block_schedule(smem, STEP_TILE, 80, 320, 2, 1, H100_SMS,
+                                  H100_SMEM)
+        assert sched.smem_bytes == smem and sched.groups == (2,)
 
 
 # -- (c) the blocked year against the JAX package ------------------------------

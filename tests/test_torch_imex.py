@@ -222,14 +222,14 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     assert again["iage_year"] == (built["iage_year"][0], 0.0)
     built = again
 
-    # the stream passes key the stream year and the sweep, not B4 or B7
+    # the fused step keys the stream year, the sweep and B7, not B4
     passes = csrc / "transport3d_stream_passes.cuh"
     passes.write_text(passes.read_text() + "\n// edited\n")
     again = imex_cuda.build_libraries()
-    for name in ("transport3d_stream", "transport3d_sweep"):
+    for name in ("transport3d_stream", "transport3d_sweep",
+                 "transport3d_block"):
         assert again[name][0] != built[name][0] and again[name][1] > 0.0
-    for name in ("transport3d_year", "transport3d_block"):
-        assert again[name] == (built[name][0], 0.0)
+    assert again["transport3d_year"] == (built["transport3d_year"][0], 0.0)
     built = again
 
     # the shared 2D header keys the three 2D kernels and neither 3D one; a

@@ -7,6 +7,8 @@ NVIDIA Hopper card and nvcc, and skip without a card
     python -m pytest tests/test_torch_kernels.py -q     # on the card
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,8 @@ from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
 )
 from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
     ShardedIageKernel,
+    ShardedYearData,
+    build_sharded_year,
     build_sharded_year_blocked,
     build_sharded_year_blocked_plain,
 )
@@ -267,12 +271,14 @@ def _stream_years(case, device, shape):
     return year_k, year_p, y0, mask
 
 
-@pytest.mark.parametrize("shape", [(4, 8, 6), (6, 37, 45)])
+@pytest.mark.parametrize("shape", [(4, 8, 6), (6, 37, 45), (60, 20, 36)])
 @pytest.mark.parametrize("case", STREAM_CASES)
 def test_stream_year_kernel_matches_plain(cuda_device, case, shape):
-    """every mode of B5 on a grid narrower than one tile (4 x 8 x 6: the
-    longitude wraps several times inside a tile) and on ragged tiles in
-    latitude and longitude (6 x 37 x 45)"""
+    """every mode of B5's fused step on a grid narrower than one tile
+    (4 x 8 x 6: the longitude wraps several times inside a tile, and the
+    rings load synchronously), on ragged tiles in latitude and longitude
+    (6 x 37 x 45) and at gx1's 60 levels (the sweep factor of every level in
+    shared memory, the rings staged by cp.async)"""
     year_k, year_p, y0, mask = _stream_years(case, cuda_device, shape)
     assert year_k.stream_diag == (case in ("dense", "seasonal", "stencil"))
     before = transport3d_stream_cuda.transport3d_stream_launches
@@ -400,7 +406,7 @@ def test_step_block_tiles_and_split_steps_match_one_block(
     whole = imex_block_cuda.build_iage_step_block(*args, dt, j_steps,
                                                   device=cuda_device)
     assert whole.plan == (j_steps, nx)
-    limit = 4 * (9 * nz * smem_columns + 3 * nz - 2)
+    limit = 4 * (11 * nz * smem_columns + 3 * nz - 2)
     tiled = imex_block_cuda.build_iage_step_block(
         *args, dt, j_steps, device=cuda_device, smem_limit=limit)
     assert tiled.plan == plan
@@ -450,6 +456,37 @@ def test_blocked_year_kernel_matches_plain_and_one_shard(cuda_device):
     assert torch.isfinite(y1).all() and y1.device == y0.device
     assert float((y1 - y_p).abs().max()) / scale < TOL
     assert float((y4 - y1).abs().max()) / scale < TOL
+
+
+def test_blocked_year_kernel_deep_columns_from_noise(cuda_device):
+    """B3's blocked year at 256 levels from seeded noise (phase 9's rough
+    check on 64 columns and 300 steps of the bench's 12,615 a year)
+    against the float64 per-step year: the column solves in float64 keep
+    it within phase 9's 5e-5 of max|y|"""
+    nz, ny, n_steps = 256, 64, 300
+    depth, ypos = build_axes(nz, ny)
+    rate = surf_restore_rate(depth)
+    diag = np.zeros((1, 2, nz, ny), np.float32)
+    diag[:, 0, 0, :] = -rate
+    diag[:, 1, 0, :] = -SURF_SLOW_FACTOR * rate
+    span = (0.0, n_steps * physics.SEC_PER_YEAR / 12615.0)
+    one = port_mesh.make_mesh(1, 1, devices=[cuda_device])
+    y0 = torch.as_tensor(np.random.default_rng(61).standard_normal(
+        (1, 2, nz, ny)), dtype=torch.float32, device=cuda_device)
+    args = (depth, ypos, MODELINFO, diag, np.zeros((1, 2), np.float32), span,
+            n_steps)
+    before = imex_block_cuda.iage_block_launches
+    y_k = build_sharded_year_blocked(one, *args, block_steps=8)(y0)
+    torch.cuda.synchronize()
+    assert imex_block_cuda.iage_block_launches > before
+    y_64 = build_sharded_year(
+        one, ShardedYearData(depth, ypos, MODELINFO, 1), diag,
+        np.zeros((1, 2, 1, 1)), span, n_steps)(y0.double())
+    y_p = build_sharded_year_blocked_plain(one, *args, block_steps=8)(y0)
+    scale = float(y_64.abs().max())
+    assert torch.isfinite(y_k).all()
+    assert float((y_k.double() - y_64).abs().max()) / scale < 5e-5
+    assert float((y_p.double() - y_64).abs().max()) / scale < 5e-5
 
 
 def test_sharded_iage_kernel_runs_b3(cuda_device):
@@ -601,14 +638,17 @@ def test_per_step_sharded_year_replays_on_the_card(cuda_device, n_y, n_x):
 
 # -- B7: k steps on a halo-extended latitude block ----------------------------
 
-def _b7_window(nz, nlat, nlon, seed=53):
+def _b7_window(nz, nlat, nlon, seed=53, land=()):
     """a (2, nz, nlat, nlon) window of a synthetic circulation, its
     coefficient stack and CN bands (float32, on the CPU), a rough state and
     a non-zero carry, rate fields and a coupling; the window is the whole
-    grid, so its selectors are the ones B7 derives from wet"""
+    grid, so its selectors are the ones B7 derives from wet.  land: more
+    dry columns (row, column)"""
     mask = np.ones((nz, nlat, nlon), np.int32)
     mask[:, 3, 2] = 0
     mask[2:, nlat - 5, nlon - 3] = 0
+    for j, i in land:
+        mask[:, j, i] = 0
     circ = synthetic.gen_circulation(nz, nlat, nlon, mask=mask)
     coef, kv, dz_r, _, _, _ = family_year_inputs(circ, [[{"name": "T"}]])
     names = [n for n, a in sorted(coef.items()) if a is not None]
@@ -673,8 +713,8 @@ def test_block3d_kernel_matches_plain(cuda_device, nz, k, rates, coupled):
     before = transport3d_block_cuda.transport3d_block_launches
     y_k, c_k = fn(*ops)
     torch.cuda.synchronize()
-    assert (transport3d_block_cuda.transport3d_block_launches - before
-            == fn.n_launch == -(-k // fn.plan[0]))
+    # the k steps in one cooperative launch
+    assert transport3d_block_cuda.transport3d_block_launches - before == 1
     y_p, c_p = plain(*ops)
     scale = float(y_p.abs().max())
     assert torch.isfinite(y_k).all()
@@ -687,20 +727,29 @@ def test_block3d_kernel_matches_plain(cuda_device, nz, k, rates, coupled):
 
 @pytest.mark.parametrize("coupled", [False, True])
 def test_block3d_tiles_and_split_steps_match_one_block(cuda_device, coupled):
-    """tiles of any shape (ragged ones included) and k split into launches
-    of j' steps give, on every cell, exactly what one block over the whole
-    window running all k steps gives"""
+    """k steps in one cooperative launch give, on every cell, exactly what
+    k launches of one step give; and several shards' windows in one launch
+    (ragged tiles, more tiles than co-resident blocks) exactly what each
+    gives alone"""
     w = _b7_window(3, 20, 24)
-    whole, ops = _b7_call(w, 4, "factored", coupled, cuda_device,
-                          plan=(4, 20, 24))
-    assert whole.plan == (4, 20, 24) and whole.n_launch == 1
+    whole, ops = _b7_call(w, 4, "factored", coupled, cuda_device)
+    one, _ = _b7_call(w, 1, "factored", coupled, cuda_device)
     y_w, c_w = whole(*ops)
-    for plan in ((1, 4, 4), (2, 5, 3), (3, 7, 24), (4, 6, 5)):
-        tiled, _ = _b7_call(w, 4, "factored", coupled, cuda_device,
-                            plan=plan)
-        y_t, c_t = tiled(*ops)
-        torch.cuda.synchronize()
-        assert torch.equal(y_t, y_w) and torch.equal(c_t, c_w), plan
+    y_s, c_s = ops[0], ops[1]
+    for _ in range(4):
+        y_s, c_s = one(y_s, c_s, *ops[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(y_s, y_w) and torch.equal(c_s, c_w)
+    wins = [_b7_window(3, 20, 24, seed) for seed in (53, 54, 55)]
+    calls = [[wn[key].to(cuda_device)
+              for key in ("y", "c", "stack", "dlb", "dub")] for wn in wins]
+    before = transport3d_block_cuda.transport3d_block_launches
+    together = whole.many(calls)
+    torch.cuda.synchronize()
+    assert transport3d_block_cuda.transport3d_block_launches - before == 1
+    for call, (y_t, c_t) in zip(calls, together):
+        y_a, c_a = whole(*call)
+        assert torch.equal(y_t, y_a) and torch.equal(c_t, c_a)
 
 
 def test_block3d_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -718,14 +767,56 @@ def test_block3d_kernel_rejects_what_it_cannot_take(cuda_device):
         fn(*ops, ops[0])
     assert transport3d_block_cuda.transport3d_block_launches == before
     names = w["names"]
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory.*year_stream"):
         transport3d_block_cuda.build_block3d_steps(
-            names, 60, 392, 320, 1, 100.0, 1, device=cuda_device,
-            plan=(1, 100, 100))
-    with pytest.raises(ValueError, match="year_stream"):
-        transport3d_block_cuda.build_block3d_steps(
-            names, 60, 392, 320, 4, 100.0, 1, couple=np.zeros((4, 4)),
+            names, 60, 392, 320, 96, 100.0, 1, couple=np.zeros((96, 96)),
             device=cuda_device)
+    with pytest.raises(ValueError, match="uint8"):
+        fn(*ops, sel=torch.zeros(ops[2].shape[1:], device=cuda_device))
+    assert transport3d_block_cuda.transport3d_block_launches == before
+    # the fused step's tile and shared memory (rings, face tiles, carries,
+    # and when coupled a tracer's surface stage states), the same in the
+    # three libraries that build it; tests/test_torch_block3d.py's
+    # schedule tests take these numbers
+    lib = transport3d_block_cuda._library()
+    rows, cols = ctypes.c_int(0), ctypes.c_int(0)
+    lib.transport3d_block_tile(ctypes.byref(rows), ctypes.byref(cols))
+    assert (rows.value, cols.value) == transport3d_sweep_cuda.step_tile() \
+        == (16, 32)
+    for t_dim, coupled in ((1, 0), (2, 1), (4, 1), (4, 0)):
+        smem = 4 * (25608 + (512 * t_dim if coupled else 0))
+        assert lib.transport3d_block_smem_bytes(t_dim, coupled) == smem
+        assert transport3d_stream_cuda._library().transport3d_stream_smem_bytes(
+            t_dim, coupled) == smem
+        assert transport3d_sweep_cuda._library().transport3d_sweep_smem_bytes(
+            t_dim, coupled) == smem
+    assert lib.transport3d_block_max_shards() == transport3d_block_cuda.MAX_SHARDS
+
+
+def test_block3d_kernel_selectors_follow_each_stack(cuda_device):
+    """one fn called on freshly allocated coefficient stacks with different
+    wet masks (the caching allocator may hand the second the first's
+    address) reads each stack's own selectors, as the plain version does;
+    selectors passed as sel give the same bits"""
+    fn = None
+    for land in ((), ((10, 7), (11, 7), (5, 30)), ((0, 0), (23, 39))):
+        w = _b7_window(3, 24, 40, land=land)
+        fn_w, ops = _b7_call(w, 2, "factored", True, cuda_device)
+        fn = fn or fn_w
+        plain = transport3d_block_cuda.block3d_steps_plain(
+            w["names"], 3, 24, 40, 2, w["dt"], 2, has_diag=True,
+            has_src=True, diag_fac=w["diag_fac"], src_fac=w["src_fac"],
+            couple=w["couple"])
+        y_k, c_k = fn(*ops)
+        y_s, c_s = fn(*ops, sel=transport3d_stream_cuda.pack_selectors(
+            ops[2][w["names"].index("wet")]))
+        torch.cuda.synchronize()
+        y_p, _ = plain(*ops)
+        assert torch.equal(y_k, y_s) and torch.equal(c_k, c_s)
+        assert float((y_k - y_p).abs().max()) / float(y_p.abs().max()) < TOL
+        land_mask = torch.as_tensor(w["wet"] == 0.0, device=cuda_device)
+        assert float(y_k[:, land_mask].abs().max()) == 0.0
+        del ops, y_k, c_k, y_s, c_s
 
 
 @pytest.mark.parametrize("n_space, k", [(2, 1), (4, 1), (8, 1), (4, 2),
@@ -759,9 +850,8 @@ def test_blocked_3d_year_kernel_matches_plain_and_one_shard(cuda_device,
     torch.cuda.synchronize()
     launches = transport3d_block_cuda.transport3d_block_launches - before
     m_blocks, r_steps = divmod(n_steps - 1, k)
-    k_blk, r_blk = many.blocks[cuda_device]
-    assert launches == many.launches == n_space * (
-        m_blocks * k_blk.n_launch + (r_blk.n_launch if r_steps else 0))
+    # every shard of the card in one launch a block
+    assert launches == many.launches == m_blocks + (r_steps > 0)
     assert many.smem_bytes > 0
     y_1 = one(y0)
     y_p = build_sharded_transport3d_year_blocked(
@@ -769,6 +859,7 @@ def test_blocked_3d_year_kernel_matches_plain_and_one_shard(cuda_device,
     scale = float(y_p.abs().max())
     assert y_n.device == cuda_device and torch.isfinite(y_n).all()
     assert float((y_n - y_1).abs().max()) / scale <= 1e-6
+    assert torch.equal(y_n, y_1)  # each interior cell's arithmetic is one
     assert float((y_n - y_p).abs().max()) / scale < TOL
     assert float((y_n * torch.as_tensor(circ["mask"] == 0,
                                         device=cuda_device)).abs().max()) == 0

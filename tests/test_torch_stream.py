@@ -415,7 +415,7 @@ def test_wrapper_reads_dense_only_what_does_not_factor(problems):
             tc, p["kv"], p["dz_r"], None, None, SPAN, N_STEPS,
             recip_area=p["recip_area"][:1], recip_dz=p["recip_dz"], t_dim=T,
             device="cpu")
-    assert t3s.cuda_launches_per_year(N_STEPS) == 1 + 2 * N_STEPS
+    assert t3s.cuda_launches_per_year(N_STEPS) == 1 + N_STEPS
 
 
 def test_season_samples_honour_the_period():
