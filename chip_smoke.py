@@ -7,7 +7,7 @@ irf_offline in-core spin-up at POP gx3 extents (60 x 116 x 100, 2000 steps
 a year, kernel transport3d_year), the streaming 3D year at POP gx1 extents
 (60 x 384 x 320, 2000 steps a year, kernel transport3d_stream), and the
 sharded py_driver_2d module-family spin-up on a (module, space) mesh
-(kernel iage_block, the IMEX step block of the blocked sharded year), the
+(kernel iage_block, the interior of the blocked sharded year), the
 blocked latitude-sharded 3D year (kernel transport3d_block) at gx1's
 horizontal extent and at full gx1 depth, and the first layout of the iage
 year (kernel iage_year_v1, iage_year's PCR variant).
@@ -41,7 +41,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   6 transport3d_year against its plain PyTorch year at gx3 (the JAX
     bench's two-module family, T = 2), for a steady circulation (against the
     plain float32 and float64 years, timed), a 12-month seasonal one and the
-    gas-exchange-coupled ABIO_DIC/DIC14 pair;
+    gas-exchange-coupled ABIO_DIC/DIC14 pair, with the kernel's launches
+    (one a year), grid syncs a year and tile layout;
   7 the gx3 spin-up (ShardedTransport3dKernel + NewtonKrylovInCore with the
     JAX bench's settings, float32, F and JVPs on the kernel), checked for
     convergence, for launches, and against a float64 plain evaluation of F
@@ -55,22 +56,25 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     its plain year at 400 steps and timed at 2000; the coupled
     ABIO_DIC/DIC14 pair against its plain year at 400 steps.  Its timed runs
     are the path whose launches the kernel's JSON entry counts.  Phases 8,
-    9, 11 and 13 each print the kernel times PERF.md gives for the design
-    before the fused step first, and this run's beside them last;
+    11 and 13 each print the kernel times PERF.md gives for the design
+    before the fused step first, and this run's beside them last; phases
+    6, 7, 9, 10 and 12 those before B3's and B4's persistent launches;
   9 iage_block in the JAX bench's million-cell blocked year (256 x 2000,
     one module of two tracers, 12,615 steps, blocks of 8 steps, a (1, 1)
     mesh): the full year timed; over its first tenth against the plain f32
     blocked year and the plain f64 per-step year, and timed beside the
     plain f32 tenth (its JSON entry's times); the full year on a (1, 4)
-    mesh of the one card against the (1, 1) year; the source-free tenth
+    mesh of the one card (all four shards in the kernel's one launch for
+    the year's interior) against the (1, 1) year; the source-free tenth
     from seeded noise (a stand-in for a Krylov direction), the kernel and
     the plain f32 blocked year each within 5e-5 of the f64 per-step year
     (both solve their columns in float64);
  10 the sharded spin-up through cli/sharded_spinup.py's entry function at
     the example's defaults (4 modules, 24 x 48, 2920 steps, float32 on
     iage_block) on a (1, 1) mesh and on 4 shards of the one card, checked
-    for convergence, for launches, against a float64 per-step evaluation
-    of F at each solution, and against each other;
+    for convergence, for launches (one a year: every shard of the card in
+    one launch), against a float64 per-step evaluation of F at each
+    solution, and against each other, with the host's halo copies a year;
  11 transport3d_sweep at gx1, uncut, on phase 8's steady upwind3 inputs:
     the 2000-step year on a 1-shard mesh timed beside transport3d_stream
     (the overhead in percent; the two agree within 1e-6), on 4 shards of
@@ -149,6 +153,7 @@ from newton_krylov_ooc_tpu_torch.ops import (
     transport3d_sweep_cuda,
 )
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
+from newton_krylov_ooc_tpu_torch.parallel import sharded_year
 from newton_krylov_ooc_tpu_torch.parallel.mesh import make_mesh
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
@@ -273,18 +278,32 @@ GX1_BLOCK_MESHES = ((1, 1), (GX1_SHARDS, 2))
 # phase 9's source-free tenth from seeded noise against the f64 per-step
 # year at 256 levels (ROADMAP C), relative to max|y|
 ROUGH_TOL = 5e-5
-# the kernels' ms before the fused step and B3's float64 columns (PERF.md
-# section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# the kernels' ms, and the solves' seconds, of the designs before this
+# tree's (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's: phases 8, 11 and 13 before the fused step, phases 6, 7, 9, 10
+# and 12 before B3's and B4's persistent launches (ranges over earlier runs
+# where PERF.md gives them)
 EARLIER_MS = {
+    6: {"steady_year": 416.28},
+    7: {"solve_seconds": "5.94-5.95"},
     8: {"upwind3_year": 1570.17, "upwind3_400_steps": 315.02,
         "stencil_f32_year": 1246.70, "stencil_bf16_year": 991.28,
         "family_T4_year": 6428.90, "seasonal_year": 1867.09},
-    9: {"year": 2010.23, "tenth": 213.72, "year_4_shards": 3877.14},
+    9: {"year": 1991.22, "tenth": 208.60, "year_4_shards": 3737.53},
+    10: {"(1, 1) solve_seconds": "8.1-13.6",
+         "(1, 4) on one card solve_seconds": "38.9-61.5",
+         "(1, 1) launches": 47085, "(1, 4) on one card launches": 376680},
     11: {"1shard_year": 1616.95, "4shards_k1_year": 5241.78,
          "4shards_k2_year": 5152.44, "4shards_400_steps": 1039.65},
+    12: {f"{mesh} {name} seconds": ("0.93-0.99" if mesh == "1 shard"
+                                    else "22.7-25.6")
+         for mesh in ("1 shard", "4 shards", "2x2 shards")
+         for name in ("family", "abio")},
     13: {"coupled_1shard_year": 142.20, "coupled_8shards_year": 377.96,
          "gx1_1shard_k1_year": 22002.58, "gx1_4shards_k2_year": 25851.77},
 }
+EARLIER_DESIGN = {8: "the fused step", 11: "the fused step",
+                  13: "the fused step"}
 
 
 def phase(num, title, **numbers):
@@ -293,16 +312,17 @@ def phase(num, title, **numbers):
 
 
 def earlier_times(num):
-    """phase num's line of the kernels' earlier times, ahead of this run's"""
-    phase(num, "kernel ms before the fused step (PERF.md, NVIDIA H100 80GB "
-               "HBM3, 700.00 W)", **EARLIER_MS[num])
+    """phase num's line of the earlier design's times, ahead of this run's"""
+    design = EARLIER_DESIGN.get(num, "the persistent launches")
+    phase(num, f"times before {design} (PERF.md, NVIDIA H100 80GB HBM3, "
+               "700.00 W)", **EARLIER_MS[num])
 
 
-def against_earlier(num, new_ms):
-    """phase num's line of this run's kernel ms beside the earlier ones"""
-    phase(num, "kernel ms, this run vs before the fused step",
-          **{key: f"{new_ms[key]:.2f}/{EARLIER_MS[num][key]:.2f}"
-             for key in EARLIER_MS[num]})
+def against_earlier(num, new):
+    """phase num's line of this run's times beside the earlier ones"""
+    design = EARLIER_DESIGN.get(num, "the persistent launches")
+    phase(num, f"times, this run vs before {design}",
+          **{key: f"{new[key]} vs {EARLIER_MS[num][key]}" for key in new})
 
 
 def timed(fn, *args):
@@ -337,6 +357,7 @@ def reset_counts():
     transport3d_sweep_cuda.transport3d_sweep_launches = 0
     transport3d_block_cuda.transport3d_block_launches = 0
     imex_cuda.iage_year_v1_launches = 0
+    sharded_year.halo_copies = 0
 
 
 def kernel_timing(year, y0):
@@ -557,6 +578,7 @@ def transport3d_kernel_phase(device):
     cases = (("steady", steady, GX3_SPECS), ("seasonal", seasonal, GX3_SPECS),
              ("coupled", steady, irf3d_spinup.ABIO_SPECS))
     worst_abs, timing = 0.0, None
+    earlier_times(6)
     for label, circ, specs in cases:
         n_steps = max(GX3_MIN_STEPS, synthetic.stable_steps_per_year(circ))
         coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, specs)
@@ -589,6 +611,10 @@ def transport3d_kernel_phase(device):
               plain_f32_ms_per_year=ms_32,
               cuda_launches_per_year=transport3d_cuda.cuda_launches_per_year(
                   n_steps),
+              grid_syncs_per_year=transport3d_cuda.grid_syncs_per_year(
+                  n_steps),
+              tile=f"{year_k.plan.ty}x{year_k.plan.tx}",
+              resident=year_k.plan.resident, blocks=year_k.plan.grid,
               max_abs_y=scale)
         if not (torch.isfinite(y_k).all() and err_32 <= F32_TOL
                 and numbers.get("rel_err_f64", 0.0) <= F64_TOL):
@@ -602,6 +628,7 @@ def transport3d_kernel_phase(device):
         worst_abs = max(worst_abs, float((y_k - y_32).abs().max()))
         if label == "steady":
             timing = (ms, ms_32, *transport3d_bound(coef, kv, t_dim, n_steps))
+    against_earlier(6, {"steady_year": timing[0]})
     return (worst_abs, *timing)
 
 
@@ -624,6 +651,7 @@ def transport3d_solve_phase(device):
     solver = NewtonKrylovInCore(kernel, **GX3_SOLVER)
     x0 = kernel.init_iterate()
 
+    earlier_times(7)
     reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -645,6 +673,7 @@ def transport3d_solve_phase(device):
           precond_seconds=spent_pc[0], precond_calls=spent_pc[1],
           max_rel_resid=float(rel.max()), f64_plain_rel_resid=rel64,
           kernel_launches=launches)
+    against_earlier(7, {"solve_seconds": seconds})
     if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
         raise SystemExit("chip_smoke: non-finite values in the gx3 solution")
     if not (rel < GX3_SOLVER["newton_rel_tol"]).all():
@@ -1052,7 +1081,8 @@ def irf3d_sharded_solve_phase(device):
     circ = synthetic.gen_circulation(defaults.nz, defaults.nlat, defaults.nlon,
                                      n_seasons=defaults.months or None)
     tol = irf3d_spinup.SOLVER["newton_rel_tol"]
-    checks, solutions, launches = {}, {}, 0
+    checks, solutions, launches, new = {}, {}, 0, {}
+    earlier_times(12)
     for label, shard_args in IRF3D_MESHES:
         reset_counts()
         results = irf3d_spinup.main(
@@ -1074,6 +1104,7 @@ def irf3d_sharded_solve_phase(device):
             rel64 = (check.norm(check.comp_fcn(x64))
                      / check.norm(x64)).max().item()
             solutions.setdefault(name, {})[label] = x
+            new[f"{label} {name} seconds"] = info["seconds"]
             phase(12, f"irf3d spin-up {label} ({name})",
                   newton_iterations=info["iterations"],
                   krylov_iterations=[int(k) for k in info["krylov_iterations"]],
@@ -1096,6 +1127,7 @@ def irf3d_sharded_solve_phase(device):
         for label, x in by_mesh.items():
             diffs[f"{name} {label}"] = rel_err(x, ref, float(ref.abs().max()))
     phase(12, "irf3d spin-up meshes", rel_diff=diffs, tol=IRF3D_MESH_TOL)
+    against_earlier(12, new)
     if not max(diffs.values()) <= IRF3D_MESH_TOL:
         raise SystemExit(f"chip_smoke: the 3D meshes' solutions differ: "
                          f"{diffs} (bound {IRF3D_MESH_TOL})")
@@ -1291,13 +1323,17 @@ def iage_block_phase(device):
 def sharded_solve_phase(device):
     """phase 10: the sharded spin-up through cli/sharded_spinup.py on two
     meshes; returns iage_block's launches over both solves"""
-    solutions, launches = [], 0
+    solutions, launches, new = [], 0, {}
+    earlier_times(10)
     for label, argv in SHARDED_MESHES:
         reset_counts()
         kernel, x, fcn, info = sharded_spinup.main(argv + ["--device", "cuda"])
         torch.cuda.synchronize()
         count = imex_block_cuda.iage_block_launches
+        copies = sharded_year.halo_copies
         launches += count
+        new.update({f"{label} solve_seconds": info["seconds"],
+                    f"{label} launches": count})
         rel = info["fcn_norm"] / info["x_norm"]
         years = info["f_evals"] + info["jvp_evals"]
         # F at the solution by the float64 per-step year
@@ -1313,7 +1349,8 @@ def sharded_solve_phase(device):
               f_evals=info["f_evals"], jvp_seconds=info["jvp_seconds"],
               jvp_evals=info["jvp_evals"], max_rel_resid=float(rel.max()),
               f64_plain_rel_resid=rel64, kernel_launches=count,
-              launches_per_year=count / max(years, 1))
+              launches_per_year=count / max(years, 1),
+              host_halo_copies_per_year=copies / max(years, 1))
         tol = sharded_spinup.SOLVER["newton_rel_tol"]
         if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
             raise SystemExit(f"chip_smoke: non-finite values in the sharded "
@@ -1329,6 +1366,7 @@ def sharded_solve_phase(device):
                    float(solutions[0].abs().max()))
     phase(10, "sharded spin-up meshes", rel_diff=diff, tol=MESH_TOL,
           launches=launches)
+    against_earlier(10, new)
     if not diff < MESH_TOL:
         raise SystemExit(f"chip_smoke: the meshes' solutions differ by "
                          f"{diff:.3e} (bound {MESH_TOL})")

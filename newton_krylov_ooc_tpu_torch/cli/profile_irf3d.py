@@ -3,20 +3,27 @@
 Runs the JAX bench's gx3 spin-up (cli/irf3d_spinup.py's GX3 settings:
 60 x 116 x 100, two modules, float32, kernel B4) on one CUDA card and
 prints, as JSON lines:
-  * the device time of each CUDA kernel over one B4 year (after a warm-up
-    year): its name, launches, total and mean time;
+  * B4's layout (csrc/transport3d_year.cu: one cooperative launch a year,
+    tiles of whole columns, resident in shared memory or walked, two grid
+    syncs a step): its tile, blocks and grid syncs a year;
+  * the device time of each CUDA kernel over one F year (after a warm-up
+    year): its name, launches, total and mean time -- B4's year is one
+    launch, so its line is the year's kernel time, and its time a step
+    that divided by the steps;
   * over a whole solve (the second in the process): the wall time, the
     device's busy time (the sum of every kernel's and copy's device time)
     and its idle share.
 With --gx1 it profiles instead one year at the bench's gx1 settings
 (60 x 384 x 320, 2000 steps, one tracer, no rates) of the stream kernel B5
 in each mode (upwind3, stencil, stencil in bf16) and of B4 on the same
-inputs, each after a warm-up year: the same per-kernel lines, by mode.
+inputs (its tiles walked, the state in device memory), each after a
+warm-up year: the same per-kernel lines, by mode.
 
     python -m newton_krylov_ooc_tpu_torch.cli.profile_irf3d [--gx1]
 
-Needs a CUDA card; the profiler's trace of ~90,000 launches adds host
-time to the profiled solve, so its wall time is not the solve's own.
+Needs a CUDA card; the profiler's trace adds host time to the profiled
+solve (the preconditioner's and the host loop's launches), so its wall
+time is not the solve's own.
 """
 
 from __future__ import annotations
@@ -34,7 +41,12 @@ from torch.profiler import ProfilerActivity, profile
 from ..core.incore import NewtonKrylovInCore
 from ..models.irf_offline import synthetic
 from ..ops.compute import resolve_device
-from ..ops.transport3d_cuda import SEC_PER_YEAR, build_transport3d_year
+from ..ops.transport3d_cuda import (
+    SEC_PER_YEAR,
+    build_transport3d_year,
+    cuda_launches_per_year,
+    grid_syncs_per_year,
+)
 from ..ops.transport3d_stream_cuda import build_transport3d_year_stream
 from ..parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
@@ -112,6 +124,15 @@ def main(argv=None):
     n_steps = max(GX3_MIN_STEPS, synthetic.stable_steps_per_year(circ))
     kernel = ShardedTransport3dKernel(circ, GX3_SPECS, n_steps, device=device,
                                       dtype=torch.float32)
+    coef, kv, dz_r, diag, src, _ = family_year_inputs(circ, GX3_SPECS)
+    plan = build_transport3d_year(coef, kv, dz_r, diag, src,
+                                  (0.0, SEC_PER_YEAR), n_steps,
+                                  device=device).plan
+    print(json.dumps({"B4_tile": [plan.ty, plan.tx],
+                      "resident": plan.resident, "blocks": plan.grid,
+                      "launches_per_year": cuda_launches_per_year(n_steps),
+                      "grid_syncs_per_year": grid_syncs_per_year(n_steps),
+                      "steps": n_steps, "card": card}), flush=True)
     x0 = kernel.init_iterate()
     kernel.comp_fcn(x0)
     torch.cuda.synchronize()
@@ -122,7 +143,9 @@ def main(argv=None):
     for name, count, micros in sorted(_device_events(prof), key=lambda e: -e[2]):
         print(json.dumps({"year_kernel": name, "launches": count,
                           "total_ms": micros / 1e3,
-                          "mean_us": micros / max(count, 1)}), flush=True)
+                          "mean_us": micros / max(count, 1),
+                          "us_per_step": micros / max(count, 1) / n_steps}),
+              flush=True)
 
     NewtonKrylovInCore(kernel, **GX3_SOLVER).solve(x0)
     torch.cuda.synchronize()

@@ -4,11 +4,14 @@ torch.profiler.
 Profiles, after a warm-up year each, on one CUDA card:
   * the JAX bench's million-cell blocked year (256 x 2000, one module of
     two tracers, 12,615 steps, blocks of 8 steps, a (1, 1) mesh): the
-    device time of each CUDA kernel (B3's launches and the plain edge
-    steps) and the year's device idle share;
+    device time of each CUDA kernel (B3's one cooperative launch for the
+    year's interior, and the plain PyTorch edge steps: the CN half steps
+    and the final Heun) and the year's device idle share;
   * one F year of cli/sharded_spinup.py's spin-up at the example's
     defaults (4 modules, 24 x 48, 2920 steps) on a (1, 1) mesh and on 4
-    shards of the card: the same lines.
+    shards of the card (all four in the same launch): the same lines,
+    with B3's layout (steps between its in-launch halo exchanges, owned
+    columns a tile, tiles) and the host's halo copies a year.
 It prints one JSON line for each of the four kernels that take the most
 device time, and one a year with the wall time, the device's busy time
 (the sum of every kernel's and copy's device time) and its idle share.
@@ -33,6 +36,8 @@ from ..models.py_driver_2d import physics
 from ..models.py_driver_2d.iage import SURF_SLOW_FACTOR, surf_restore_rate
 from ..ops.compute import resolve_device
 from ..parallel.mesh import make_mesh
+from ..ops import imex_block_cuda
+from ..parallel import sharded_year
 from ..parallel.sharded_year import build_sharded_year_blocked
 from . import sharded_spinup
 from .incore_spinup import MODELINFO, build_axes
@@ -91,8 +96,16 @@ def main():
     for label, argv in MESHES:
         kernel = sharded_spinup.build_kernel(
             sharded_spinup.parse_args(argv + ["--device", "cuda"]))
+        before = (imex_block_cuda.iage_block_launches,
+                  sharded_year.halo_copies)
         profile_year(f"spin-up F {label}", kernel._year,
                      kernel.init_iterate(), card)
+        print(json.dumps({
+            "year": f"spin-up F {label}",
+            "b3_launches_per_year":
+                (imex_block_cuda.iage_block_launches - before[0]) / 2,
+            "host_halo_copies_per_year":
+                (sharded_year.halo_copies - before[1]) / 2}), flush=True)
 
 
 if __name__ == "__main__":

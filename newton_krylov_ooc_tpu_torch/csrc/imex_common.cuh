@@ -1,10 +1,11 @@
-// Device code shared by the py_driver_2d year kernels, csrc/iage_year.cu
-// (iage, B1) and csrc/phosphorus_year.cu (phosphorus, B2): the packed scalar
-// header, the constant grid fields, the seasonal vertical mixing
-// coefficient kv(t) in closed form, the fused transport tendency, the Kahan
-// add, and the Thomas column solve of the Crank-Nicolson increment with the
-// Kahan add fused into its back substitution.  Both kernels keep one
-// block's whole year in shared memory; see the note at the top of each.
+// Device code shared by the py_driver_2d kernels, csrc/iage_year.cu (iage,
+// B1), csrc/phosphorus_year.cu (phosphorus, B2) and csrc/iage_block.cu (the
+// blocked sharded year, B3): the packed scalar header, the constant grid
+// fields, the seasonal vertical mixing coefficient kv(t) in closed form,
+// the fused transport tendency, the Kahan add, and the float32 Thomas
+// column solve of the Crank-Nicolson increment with the Kahan add fused
+// into its back substitution (B1, B2).  See the note at the top of each
+// kernel.
 
 #pragma once
 
@@ -76,22 +77,32 @@ __device__ inline float antider(float x, float x0, float x1) {
   return 0.5f * c * c + (x1 - x0) * fmaxf(x - x1, 0.0f);
 }
 
-// vertical mixing coefficient / delta_mid on interior edge (k, j) at frac
-__device__ inline float kv_edge(int k, int j, int ny, float frac,
-                                const Header& h, const Fields& g) {
-  float bld = h.bld_min + (g.bld_max[j] - h.bld_min) * frac;
+// vertical mixing coefficient / delta_mid on interior edge k of a column
+// whose mixed-layer maximum is bld_max and vertical velocity at the edge
+// wv, at frac; depth_mid, dz_mid, dz_mid_r by level
+__device__ inline float kv_value(int k, float bld_max, float wv, float frac,
+                                 const Header& h, const float* depth_mid,
+                                 const float* dz_mid, const float* dz_mid_r) {
+  float bld = h.bld_min + (bld_max - h.bld_min) * frac;
   float x0 = bld - 20.0f;
   float x1 = bld + 20.0f;
   float slope = (h.log_deep - h.log_shallow) / (x1 - x0);
-  float e_lo = g.depth_mid[k];
-  float e_hi = g.depth_mid[k + 1];
+  float e_lo = depth_mid[k];
+  float e_hi = depth_mid[k + 1];
   float e_delta = e_hi - e_lo;
   float num = h.log_shallow * e_delta +
               slope * (antider(e_hi, x0, x1) - antider(e_lo, x0, x1));
   float coeff = expf(num / e_delta);
-  float peclet = 0.5f * g.dz_mid[k] * fabsf(g.wv[k * ny + j]) / coeff;
+  float peclet = 0.5f * dz_mid[k] * fabsf(wv) / coeff;
   coeff = coeff * fmaxf(peclet, 1.0f);
-  return coeff * g.dz_mid_r[k];
+  return coeff * dz_mid_r[k];
+}
+
+// kv_value on interior edge (k, j) of the grid fields g
+__device__ inline float kv_edge(int k, int j, int ny, float frac,
+                                const Header& h, const Fields& g) {
+  return kv_value(k, g.bld_max[j], g.wv[k * ny + j], frac, h, g.depth_mid,
+                  g.dz_mid, g.dz_mid_r);
 }
 
 // kv at time t on every interior edge, spread over the block's threads
@@ -179,62 +190,6 @@ __device__ inline void cn_column(float* y, float* comp, float* cp, float* gp,
     int idx = k * ny + j;
     float x = gp[idx] - cp[idx] * x_next;
     kahan_add(y, comp, idx, x);
-    x_next = x;
-  }
-}
-
-// cn_column in float64: the flux-form right-hand side, the elimination and
-// the back substitution in double from the float32 state and kv, the
-// increment rounded once to float32 for the Kahan add.  In a deep column of
-// stiff mixing (256 levels, h |M| ~ 6e3 in the mixed layer) float32 sweep
-// factors and right-hand side lose about 6e3 ulps of the state's slow
-// modes a step; this keeps the column solve out of the year's error budget
-// (B3, csrc/iage_block.cu).  cp and gp take the sweep factors.
-template <bool kDiag>
-__device__ inline void cn_column64(float* y, float* comp, double* cp,
-                                   double* gp, const float* kv,
-                                   const float* diag, float h, int j, int nz,
-                                   int ny, const Fields& g) {
-  const double hd = h, half = 0.5 * hd;
-  double cp_prev = 0.0, gp_prev = 0.0, kv_lo = 0.0, flux_up = 0.0;
-  double yk = y[j];
-  for (int k = 0; k < nz; ++k) {
-    const int idx = k * ny + j;
-    const double dzr = g.dz_r[k];
-    double kv_up = 0.0, y_dn = 0.0, flux_dn = 0.0;
-    if (k < nz - 1) {
-      kv_up = kv[idx];
-      y_dn = y[idx + ny];
-      flux_dn = kv_up * (y_dn - yk);
-    }
-    const double du = kv_up * dzr;
-    const double dl = kv_lo * dzr;
-    double dmain, rhs;
-    if constexpr (kDiag) {
-      const double d = diag[idx];
-      dmain = -(du + dl) + d;
-      rhs = hd * (dzr * (flux_dn - flux_up) + d * yk);
-    } else {
-      dmain = -(du + dl);
-      rhs = hd * (dzr * (flux_dn - flux_up));
-    }
-    const double a = -half * dl;
-    const double b = 1.0 - half * dmain;
-    const double c = -half * du;
-    const double inv = 1.0 / (b - a * cp_prev);
-    cp_prev = c * inv;
-    gp_prev = (rhs - a * gp_prev) * inv;
-    cp[idx] = cp_prev;
-    gp[idx] = gp_prev;
-    kv_lo = kv_up;
-    flux_up = flux_dn;
-    yk = y_dn;
-  }
-  double x_next = 0.0;
-  for (int k = nz - 1; k >= 0; --k) {
-    const int idx = k * ny + j;
-    const double x = gp[idx] - cp[idx] * x_next;
-    kahan_add(y, comp, idx, (float)x);
     x_next = x;
   }
 }

@@ -1,5 +1,5 @@
-"""the IMEX step block of the sharded 2D year (kernel B3), beside its plain
-PyTorch version.
+"""the IMEX step blocks of the sharded 2D year (kernel B3), beside their
+plain PyTorch version.
 
 Port of newton_krylov_ooc_tpu/ops/imex_pallas.py::_block_callable (the
 kernel), ::pack_block_consts (the operand packing) and
@@ -9,16 +9,22 @@ family on a closed (C, nz, nx) window -- zero lateral flux outside it --
 carrying a Kahan buffer in and out, with step i at t_start + i dt computed
 in float32.  parallel/sharded_year.py::build_sharded_year_blocked runs the
 interior of a year as such blocks on every (module, space) shard of a
-mesh, with windows extended by 2 j_steps exchanged halo columns a side.
+mesh, with windows extended by 2 j_steps halo columns a side.
 
-`build_iage_step_block(..., device=)` returns fn(y, comp, t_start) ->
-(y, comp): on a CUDA device it launches csrc/iage_block.cu (see the note at
-the top of that file) and raises if it cannot; on the CPU it is the plain
-version.  `build_iage_step_block_plain` is the plain version on any device:
-the TPU kernel's arithmetic, lane-packed as it is, its reciprocal-form PCR
-included, except that the CN column solve runs in float64, as the kernel's
-does: at 256 levels a float32 column solve (PCR or Thomas) loses about
-h |M| ~ 6e3 ulps of a rough state's slow modes a step (ROADMAP C).
+On the card, csrc/iage_block.cu (see the note at the top of that file)
+runs many such blocks in one cooperative launch: `SlabRun` holds the
+slabs of one launch -- the shards of a card, and ghost slabs beside a
+shard whose neighbour is on another device -- with their state buffers,
+and steps them all for any span of a year, exchanging halos through
+device memory; `block_plan` sizes its tiles so that all of them are on
+the card at once.  `build_iage_step_block(..., device=)` returns fn(y,
+comp, t_start) -> (y, comp): on a CUDA device one launch over the window
+as one slab (and raises if it cannot); on the CPU the plain version.
+`build_iage_step_block_plain` is the plain version on any device: the TPU
+kernel's arithmetic, lane-packed as it is, its reciprocal-form PCR
+included, except that the CN column solve runs in float64, as the
+kernel's does: at 256 levels a float32 column solve (PCR or Thomas) loses
+about h |M| ~ 6e3 ulps of a rough state's slow modes a step (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ from .imex_cuda import (
     mixing_header,
 )
 
-# launches of csrc/iage_block.cu in this process (one per launch, a block
-# of j steps may take several); callers reset it to 0 to count a run's
+# launches of csrc/iage_block.cu in this process (one a step block, one a
+# blocked year's interior on one card); callers reset it to 0 to count a
+# run's
 iage_block_launches = 0
 
 
@@ -230,99 +237,183 @@ def plain_block(consts, shape, dt, j_steps, *, device):
 
 
 def _library():
-    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    c_int, c_ptr, c_long = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
     return load_library("iage_block", {
-        "smem_bytes": ([c_int] * 2, ctypes.c_long),
+        "max_levels": ([], c_int),
+        "smem_bytes": ([c_int] * 2, c_long),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
-        # y_in, c_in, y_out, c_out, ca, cb, wv, diag, src, src_rows,
-        # bld_max, dy_r, dz_r, dz_mid, dz_mid_r, depth_mid, header, c_dim,
-        # nz, nx, tile, halo, i0, j_steps, t_start, dt, stream
-        "launch": ([c_ptr] * 9 + [c_int] + [c_ptr] * 7 + [c_int] * 7
-                   + [ctypes.c_float] * 2 + [c_ptr], c_int),
+        "occupancy": ([c_int, c_long, ctypes.POINTER(c_int)], c_int),
+        "slab_bytes": ([], c_int),
+        "pack_slabs": ([c_ptr, c_ptr, c_int, c_ptr], None),
+        # slabs, tiles, n_tiles, dz_r, dz_mid, dz_mid_r, depth_mid, header,
+        # t_block, c_dim, nz, width_max, k_block, j_int, g0, n_steps,
+        # in_buf, dt, stream
+        "launch": ([c_ptr, c_ptr, c_int] + [c_ptr] * 6 + [c_int] * 8
+                   + [ctypes.c_float, c_ptr], c_int),
     })
 
 
-def block_plan(smem_bytes, smem_limit, nz, nx, j_steps):
-    """(j_inner, tile): the steps of one launch and the owned columns of
-    one CUDA block, for kernel shared memory smem_bytes(nz, width) within
-    smem_limit bytes.  The whole window in one block per channel when it
-    fits (j_inner = j_steps, tile = nx); otherwise launches of j_inner
-    steps whose halo of 4 j_inner loaded columns is at most a quarter of
-    what a block holds, and the rest of it owned."""
-    if smem_bytes(nz, nx) <= smem_limit:
-        return j_steps, nx
-    per_col = smem_bytes(nz, 2) - smem_bytes(nz, 1)
-    max_cols = (smem_limit - smem_bytes(nz, 1) + per_col) // per_col
-    j_inner = min(j_steps, max(1, max_cols // 16))
-    tile = max_cols - 4 * j_inner
-    if tile < 1:
-        raise ValueError(
-            f"one column of {nz} levels and its halo need "
-            f"{smem_bytes(nz, 5)} bytes of shared memory, over the "
-            f"{smem_limit} one block may use"
-        )
-    return j_inner, tile
+# the fewest owned columns a tile takes, where the slabs are that wide: a
+# narrower tile spends more of its shared memory and work on its halo
+MIN_TILE = 16
+
+
+def block_plan(smem_bytes, smem_limit, nz, widths, c_dim, k_steps,
+               capacity):
+    """(j_int, tile) of B3's launch over slabs of `widths` columns and
+    c_dim channels: the tile of the fewest owned columns (at least
+    MIN_TILE, or the widest slab) whose tiles all fit on the card at once
+    -- c_dim * sum(ceil(w / tile)) blocks within capacity(smem) co-resident
+    blocks -- and the steps between halo exchanges, j_int <= k_steps, the
+    most whose halo of 2 j_int columns a side is at most half the tile and
+    whose region of tile + 4 j_int columns fits smem_bytes(nz, width)
+    within smem_limit bytes.  Raises ValueError, naming the limit, when no
+    tile fits."""
+    widest = max(widths)
+    for tile in range(min(MIN_TILE, widest), widest + 1):
+        j_int = next((j for j in range(min(k_steps, max(1, tile // 4)), 0, -1)
+                      if smem_bytes(nz, tile + 4 * j) <= smem_limit), 0)
+        if not j_int:
+            raise ValueError(
+                f"a tile of {tile} columns of {nz} levels and its halo need "
+                f"{smem_bytes(nz, tile + 4)} bytes of shared memory, over "
+                f"the {smem_limit} one block may use"
+            )
+        blocks = c_dim * sum(-(-w // tile) for w in widths)
+        held = capacity(smem_bytes(nz, tile + 4 * j_int))
+        if blocks <= held:
+            return j_int, tile
+    raise ValueError(
+        f"the year's {c_dim} channels of {sum(widths)} columns need "
+        f"{blocks} tiles of {widest} columns at once, over the {held} "
+        "blocks the card holds at once: use fewer shards or channels a card"
+    )
+
+
+def tile_table(widths, c_dim, tile):
+    """(slab, channel, x0, x1) of every tile, one a CUDA block, as int32"""
+    return np.array([(q, ch, x0, min(w, x0 + tile))
+                     for q, w in enumerate(widths) for ch in range(c_dim)
+                     for x0 in range(0, w, tile)], np.int32).reshape(-1, 4)
+
+
+class SlabRun:
+    """kernel B3 on one CUDA device: the slabs of one launch group, their
+    state buffers (two of y and two of the carry a slab, (C, nz, w)), and
+    their descriptors and tiles in device memory, made once.
+
+    specs: per slab a dict of `consts` (_consts_on of the shard window's
+    pack_block_consts tuple), `w` (columns), `xoff` (the window column of
+    the slab's column 0) and `left`, `right` (neighbour slab indices, -1
+    closed).  launch(g0, n_steps, in_buf, t_block) steps every slab from
+    buffer in_buf and returns the buffer the state ends in."""
+
+    def __init__(self, specs, c_dim, nz, dt, k_block, device, *,
+                 smem_limit=None):
+        lib = self.lib = _library()
+        if nz > lib.iage_block_max_levels():
+            raise ValueError(f"the iage_block kernel takes at most "
+                             f"{lib.iage_block_max_levels()} levels, got {nz}")
+        if smem_limit is None:
+            limit = ctypes.c_int(0)
+            err = lib.iage_block_smem_optin(device.index, ctypes.byref(limit))
+            if err:
+                raise cuda_error(lib, "iage_block", err,
+                                 "querying the shared-memory opt-in limit")
+            smem_limit = limit.value
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+
+        def capacity(smem):
+            per_sm = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.iage_block_occupancy(nz, smem, ctypes.byref(per_sm))
+            if err:
+                raise cuda_error(lib, "iage_block", err,
+                                 "querying the kernel's occupancy")
+            return per_sm.value * n_sm
+
+        widths = [spec["w"] for spec in specs]
+        self.plan = block_plan(lib.iage_block_smem_bytes, smem_limit, nz,
+                               widths, c_dim, k_block, capacity)
+        self.j_int, tile = self.plan
+        self.width_max = tile + 4 * self.j_int
+        tiles = tile_table(widths, c_dim, tile)
+        self.n_tiles = len(tiles)
+        self.device, self.c_dim, self.nz, self.k_block = (device, c_dim, nz,
+                                                          int(k_block))
+        self.dt32 = float(np.float32(dt))
+        f32 = torch.float32
+        self.y = [[torch.zeros((c_dim, nz, w), dtype=f32, device=device)
+                   for _ in range(2)] for w in widths]
+        self.c = [[torch.zeros_like(pair[0]) for _ in range(2)]
+                  for pair in self.y]
+        ptrs, ints = [], []
+        for q, spec in enumerate(specs):
+            ca, wv, diag, src, bld_max, _, _, _, _, dy_r, cb = spec["consts"]
+            ptrs += [buf.data_ptr() for buf in (*self.y[q], *self.c[q],
+                                                ca, cb, wv, diag, src,
+                                                bld_max, dy_r)]
+            ints += [spec["w"], spec["xoff"], int(dy_r.shape[1]) // c_dim,
+                     spec["left"], spec["right"], int(src.shape[0])]
+        raw = ctypes.create_string_buffer(lib.iage_block_slab_bytes()
+                                          * len(specs))
+        lib.iage_block_pack_slabs((ctypes.c_void_p * len(ptrs))(*ptrs),
+                                  (ctypes.c_int * len(ints))(*ints),
+                                  len(specs), raw)
+        self.slabs = torch.frombuffer(bytearray(raw.raw),
+                                      dtype=torch.uint8).to(device)
+        self.tiles = torch.as_tensor(tiles, device=device)
+        level = specs[0]["consts"][5:9]  # dz_r, dz_mid, dz_mid_r, depth_mid
+        self.header = mixing_header().to(f32).to(device)
+        self.level_ptrs = [a.data_ptr() for a in level] + [
+            self.header.data_ptr()]
+        # the launches take raw pointers: keep their tensors alive
+        self.operands = [spec["consts"] for spec in specs]
+
+    def launch(self, g0, n_steps, in_buf, t_block):
+        """steps g0 .. g0 + n_steps - 1 of every slab from buffer in_buf,
+        with t_block the float32 start time of each block of k_block steps
+        (a tensor on the device); returns the buffer the state ends in"""
+        global iage_block_launches
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = self.lib.iage_block_launch(
+                self.slabs.data_ptr(), self.tiles.data_ptr(), self.n_tiles,
+                *self.level_ptrs, t_block.data_ptr(), self.c_dim, self.nz,
+                self.width_max, self.k_block, self.j_int, int(g0),
+                int(n_steps), int(in_buf), self.dt32, stream)
+        if err:
+            raise cuda_error(self.lib, "iage_block", err,
+                             "iage_block cooperative launch")
+        iage_block_launches += 1
+        return (in_buf + -(-int(n_steps) // self.j_int)) % 2
 
 
 def kernel_block(consts, shape, dt, j_steps, *, device, smem_limit=None):
     """fn(y, comp, t_start) -> (y, comp) over (C, nz, nx) float32 tensors on
-    the CUDA `device`, through csrc/iage_block.cu: ceil(j_steps / j_inner)
-    launches (block_plan), ping-ponged through one scratch pair.
-    smem_limit: bytes a block may use (default: the card's opt-in limit;
-    a smaller one forces tiles and split steps, for tests)."""
+    the CUDA `device`, through csrc/iage_block.cu: one cooperative launch
+    over the window, closed at both edges, as one slab (block_plan's tiles,
+    halos exchanged every j_int steps).  smem_limit: bytes a block may use
+    (default: the card's opt-in limit; a smaller one forces narrower tiles
+    and shorter intervals, for tests)."""
     j_steps = _check_j(j_steps)
     c_dim, nz, nx = shape
     dev = _consts_on(consts, device)
-    ca, wv, diag, src, bld_max, dz_r, dz_mid, dz_mid_r, depth_mid, dy_r, cb = dev
-    src_rows = int(src.shape[0])
-    header = mixing_header().to(torch.float32).to(device)
-    lib = _library()
-    if smem_limit is None:
-        limit = ctypes.c_int(0)
-        err = lib.iage_block_smem_optin(device.index, ctypes.byref(limit))
-        if err:
-            raise cuda_error(lib, "iage_block", err,
-                             "querying the shared-memory opt-in limit")
-        smem_limit = limit.value
-    j_inner, tile = block_plan(lib.iage_block_smem_bytes, smem_limit, nz, nx,
-                               j_steps)
-    n_launch = -(-j_steps // j_inner)
-    dt32 = float(np.float32(dt))
-    consts_ptrs = [a.data_ptr() for a in (ca, cb, wv, diag, src)]
-    tail_ptrs = [a.data_ptr() for a in (bld_max, dy_r, dz_r, dz_mid,
-                                        dz_mid_r, depth_mid, header)]
+    run = SlabRun([dict(consts=dev, w=nx, xoff=0, left=-1, right=-1)],
+                  c_dim, nz, dt, j_steps, device, smem_limit=smem_limit)
 
     def block(y, comp, t_start):
-        global iage_block_launches
         _check_state(y, shape, torch.float32, device)
         _check_state(comp, shape, torch.float32, device)
-        t0 = float(np.float32(t_start))
-        outs = (torch.empty_like(y), torch.empty_like(comp))
-        scratch = ((torch.empty_like(y), torch.empty_like(comp))
-                   if n_launch > 1 else None)
-        src_y, src_c = y, comp
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            for r in range(n_launch):
-                steps = min(j_inner, j_steps - r * j_inner)
-                # the last launch lands in outs
-                dst_y, dst_c = outs if (n_launch - 1 - r) % 2 == 0 else scratch
-                err = lib.iage_block_launch(
-                    src_y.data_ptr(), src_c.data_ptr(), dst_y.data_ptr(),
-                    dst_c.data_ptr(), *consts_ptrs, src_rows, *tail_ptrs,
-                    c_dim, nz, nx, tile, 2 * steps, r * j_inner, steps, t0,
-                    dt32, stream,
-                )
-                if err:
-                    raise cuda_error(lib, "iage_block", err,
-                                     "iage_block_kernel launch")
-                iage_block_launches += 1
-                src_y, src_c = dst_y, dst_c
-        return outs
+        run.y[0][0].copy_(y)
+        run.c[0][0].copy_(comp)
+        t_block = torch.tensor([float(np.float32(t_start))],
+                               dtype=torch.float32, device=device)
+        out = run.launch(0, j_steps, 0, t_block)
+        # the run's buffers are stepped again by the next call
+        return run.y[0][out].clone(), run.c[0][out].clone()
 
-    block.plan = (j_inner, tile)
-    # the launches take raw pointers: the block keeps their tensors alive
-    block.operands = (*dev, header)
+    block.plan = run.plan
     return block
 
 

@@ -258,6 +258,27 @@ def upwind3_selectors(wet):
     }
 
 
+# the bits of the selector byte, the SelBit of csrc/transport3d_year.cu and
+# csrc/transport3d_stream_passes.cuh
+SEL_BITS = ("wet", "sel3p_e", "sel3n_e", "sel3p_n", "sel3n_n", "sel3p_t",
+            "sel3n_t")
+
+
+def pack_selectors(wet):
+    """the byte a cell the 3D kernels (B4 and the fused step of B5, B6 and
+    B7) read for its upwind3 faces: bit 0 the
+    wet mask, bits 1-6 the far-cell selectors of the cell's east, north and
+    top faces (ops/transport3d.py::upwind3_selectors: shifts of `wet`,
+    periodic in longitude, zero past the grid in latitude and depth), in
+    SEL_BITS order.  wet: (nz, nlat, nlon) 0/1 tensor; returns uint8 on its
+    device."""
+    fields = {"wet": wet, **upwind3_selectors(wet)}
+    out = torch.zeros(wet.shape, dtype=torch.uint8, device=wet.device)
+    for pos, name in enumerate(SEL_BITS):
+        out |= (fields[name] != 0).to(torch.uint8) << pos
+    return out
+
+
 def _face_value(trans, y_up, y_dn, y_uu, y_dd, sel3p, sel3n, upwind3):
     """advective face tracer value for transport `trans` from cell `up`
     toward cell `dn` (positive trans); y_uu/y_dd are the far cells"""

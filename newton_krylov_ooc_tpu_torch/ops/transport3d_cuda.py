@@ -5,10 +5,14 @@ beside its plain PyTorch version.
 newton_krylov_ooc_tpu/ops/transport3d_pallas.py::build_transport3d_year_pallas:
 (coef, kv, dz_r, diag, src, t_span, n_steps, couple) -> year(y0) with y0 of
 shape (T, nz, nlat, nlon), float32, steady or seasonal circulation, and the
-optional (T, T) surface gas-exchange coupling.  One call enqueues the whole
-year on PyTorch's current stream from a C loop in csrc/transport3d_year.cu
-(see the note at the top of that file for the design); it counts its calls
-in `transport3d_year_launches`.
+optional (T, T) surface gas-exchange coupling.  One call runs the whole
+year as one cooperative launch of csrc/transport3d_year.cu on PyTorch's
+current stream (see the note at the top of that file for the design), laid
+out by `year_plan` (tiles of whole columns, resident in shared memory when
+every tile fits the card at once, else walked); it counts its calls in
+`transport3d_year_launches`.  Its selector bytes are packed once a built year
+(`pack_selectors`) and its month table (`month_table`) lies in device
+memory.
 
 `build_transport3d_year_plain` is the single-device content of the JAX
 package's parallel/sharded_transport3d.py::build_sharded_transport3d_year
@@ -27,6 +31,7 @@ others by ops/imex_cuda.py::build_libraries.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +43,7 @@ from .transport3d import (
     interp_month,
     interp_transport_coef,
     month_bracket,
+    pack_selectors,
     stencil_tend,
     transport_coef_n_time,
     transport_tend,
@@ -55,9 +61,15 @@ transport3d_year_launches = 0
 
 
 def cuda_launches_per_year(n_steps):
-    """CUDA kernel launches one year enqueues: the first CN half step, then
-    per step two tendency passes and one column pass"""
-    return 1 + 3 * int(n_steps)
+    """CUDA kernel launches one year enqueues: one cooperative launch runs
+    the whole year"""
+    return 1
+
+
+def grid_syncs_per_year(n_steps):
+    """grid-wide barriers in one year's launch: after the first CN half
+    step, and after each step's two stages but the last"""
+    return 2 * int(n_steps)
 
 
 def year_frac(t, period=SEC_PER_YEAR):
@@ -224,14 +236,106 @@ def _check_operands(operands, n_time, nz, nlat, nlon):
                          f"expected ({nz},)")
 
 
+def month_table(t_span, n_steps, n_time, device, period=SEC_PER_YEAR):
+    """season_samples as the kernel reads them: (m0, m1, w) int32, int32
+    and float32 tensors on `device`, 2 n_steps + 1 samples each"""
+    return tuple(torch.as_tensor(arr, device=device)
+                 for arr in season_samples(t_span, n_steps, n_time, period))
+
+
+# the tile of a year whose tiles do not all fit the card at once: its
+# blocks walk several a stage, their state in device memory
+WALK_TILE = (8, 32)
+
+
+class Plan(NamedTuple):
+    """how B4 lays a year on the card: tiles of ty x tx whole columns,
+    resident (every tile's state in one block's shared memory for the whole
+    year) or walking, and the launch's blocks"""
+    ty: int
+    tx: int
+    resident: bool
+    grid: int
+
+
+def year_plan(smem_bytes, smem_limit, t_dim, nz, nlat, nlon, capacity):
+    """the Plan of B4 for a (t_dim, nz, nlat, nlon) year: the tile of the
+    fewest columns (then the least region) whose tiles all fit the card at
+    once with their state resident -- tiles <= capacity(True, smem) -- and
+    whose smem_bytes(t_dim, nz, ty, tx, resident) fit smem_limit bytes;
+    otherwise WALK_TILE (halved until it fits) walked by
+    capacity(False, smem) blocks.  Raises ValueError, naming the limit,
+    when no tile fits."""
+    best = None
+    for ty in range(1, nlat + 1):
+        for tx in range(1, nlon + 1):
+            smem = smem_bytes(t_dim, nz, ty, tx, 1)
+            if smem > smem_limit:
+                break
+            tiles = -(-nlat // ty) * -(-nlon // tx)
+            if tiles <= capacity(True, smem):
+                key = (ty * tx, (ty + 4) * (tx + 4))
+                if best is None or key < best[0]:
+                    best = (key, Plan(ty, tx, True, tiles))
+                break
+    if best is not None:
+        return best[1]
+    ty, tx = min(WALK_TILE[0], nlat), min(WALK_TILE[1], nlon)
+    while smem_bytes(t_dim, nz, ty, tx, 0) > smem_limit and ty * tx > 1:
+        ty, tx = (ty, max(1, tx // 2)) if tx >= ty else (max(1, ty // 2), tx)
+    smem = smem_bytes(t_dim, nz, ty, tx, 0)
+    held = capacity(False, smem) if smem <= smem_limit else 0
+    if held < 1:
+        raise ValueError(
+            f"a transport3d_year tile of one column of {nz} levels and "
+            f"{t_dim} tracers needs {smem} bytes of shared memory, over "
+            f"the {smem_limit} one block may use"
+        )
+    tiles = -(-nlat // ty) * -(-nlon // tx)
+    return Plan(ty, tx, False, min(tiles, held))
+
+
 def _library():
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     return load_library("transport3d_year", {
-        # y, comp, f1, f2, operand pointers, seasonal flags, m0, m1, w,
-        # t_dim, nz, nlat, nlon, upwind3, n_steps, dt, stream
-        "launch": ([c_ptr] * 9 + [c_int] * 6 + [ctypes.c_float, c_ptr],
+        "smem_bytes": ([c_int] * 5, ctypes.c_long),
+        "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
+        "occupancy": ([c_int, ctypes.c_long, ctypes.POINTER(c_int)], c_int),
+        # y, ys, comp, f1, operand pointers, seasonal flags, sel, m0, m1, w,
+        # t_dim, nz, nlat, nlon, upwind3, ty, tx, resident, grid, n_steps,
+        # dt, stream
+        "launch": ([c_ptr] * 10 + [c_int] * 10 + [ctypes.c_float, c_ptr],
                    c_int),
     })
+
+
+def _card_plan(lib, device, t_dim, nz, nlat, nlon, smem_limit=None,
+               max_blocks=None):
+    """year_plan on the card: its shared-memory limit, SM count and the
+    kernel's occupancy (smem_limit and max_blocks cap them, for tests)"""
+    if smem_limit is None:
+        limit = ctypes.c_int(0)
+        err = lib.transport3d_year_smem_optin(device.index,
+                                              ctypes.byref(limit))
+        if err:
+            raise cuda_error(lib, "transport3d_year", err,
+                             "querying the shared-memory opt-in limit")
+        smem_limit = limit.value
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def capacity(resident, smem):
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.transport3d_year_occupancy(int(resident), smem,
+                                                 ctypes.byref(per_sm))
+        if err:
+            raise cuda_error(lib, "transport3d_year", err,
+                             "querying the kernel's occupancy")
+        held = per_sm.value * n_sm
+        return held if max_blocks is None else min(held, max_blocks)
+
+    return year_plan(lib.transport3d_year_smem_bytes, smem_limit, t_dim, nz,
+                     nlat, nlon, capacity)
 
 
 def build_transport3d_year(coef, kv, dz_r, diag, src, t_span, n_steps,
@@ -242,7 +346,10 @@ def build_transport3d_year(coef, kv, dz_r, diag, src, t_span, n_steps,
 
     Arguments as build_transport3d_year_plain's (any dtype; the kernel's
     operands are float32).  Raises ValueError, as the TPU kernel does, when
-    a seasonal step is longer than one month interval (dt > year/n_time).
+    a seasonal step is longer than one month interval (dt > year/n_time),
+    when no tile fits the card (year_plan), and on a CUDA device for 2^31
+    or more values of one state or one month.  year.plan is the launch's
+    Plan (None on the CPU).
     """
     device = resolve_device(device)
     wet = coef["wet"]
@@ -269,8 +376,10 @@ def build_transport3d_year(coef, kv, dz_r, diag, src, t_span, n_steps,
                 else operands[name].contiguous() for name in _SLOTS}
     _check_operands(operands, n_time, nz, nlat, nlon)
     if device.type == "cpu":
-        return build_transport3d_year_plain(coef32, kv, operands["dz_r"], diag,
+        year = build_transport3d_year_plain(coef32, kv, operands["dz_r"], diag,
                                             src, t_span, n_steps, couple)
+        year.plan = None
+        return year
 
     ptrs = (ctypes.c_void_p * len(_SLOTS))(*(
         None if operands[name] is None else operands[name].data_ptr()
@@ -281,32 +390,44 @@ def build_transport3d_year(coef, kv, dz_r, diag, src, t_span, n_steps,
              and operands[name] is not None
              and operands[name].ndim == (4 if name != "kv" else 3))
          for name in _SLOTS], np.int32)
-    m0, m1, w = season_samples(t_span, n_steps, n_time)
+    if max(t_dim, n_time or 1) * nz * nh >= 2 ** 31:
+        raise ValueError(
+            f"the transport3d_year kernel indexes in 32 bits: "
+            f"{max(t_dim, n_time or 1)} x {nz * nh} values is too many")
+    months = month_table(t_span, n_steps, n_time, device)
+    sel = pack_selectors(operands["wet"])
     upwind3 = int(coef.get("sel3p_e") is not None)
     lib = _library()
+    plan = _card_plan(lib, device, t_dim, nz, nlat, nlon)
     shape = (t_dim, nz, nlat, nlon)
+    dt32 = float(np.float32(dt))
 
     def year(y0):
         global transport3d_year_launches
         _check_state(y0, shape, f32, device)
         out = y0.clone()
-        comp = torch.zeros_like(y0)
-        f1, f2 = torch.empty_like(y0), torch.empty_like(y0)
+        ys = torch.empty_like(y0)
+        comp = f1 = None
+        if not plan.resident:
+            comp, f1 = torch.zeros_like(y0), torch.empty_like(y0)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.transport3d_year_launch(
-                out.data_ptr(), comp.data_ptr(), f1.data_ptr(), f2.data_ptr(),
-                ctypes.cast(ptrs, ctypes.c_void_p),
-                seasonal.ctypes.data, m0.ctypes.data, m1.ctypes.data,
-                w.ctypes.data, t_dim, nz, nlat, nlon, upwind3, int(n_steps),
-                dt, stream,
+                out.data_ptr(), ys.data_ptr(),
+                None if comp is None else comp.data_ptr(),
+                None if f1 is None else f1.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p), seasonal.ctypes.data,
+                sel.data_ptr(), *(arr.data_ptr() for arr in months), t_dim,
+                nz, nlat, nlon, upwind3, plan.ty, plan.tx,
+                int(plan.resident), plan.grid, int(n_steps), dt32, stream,
             )
         if err:
             raise cuda_error(lib, "transport3d_year", err,
-                             "transport3d_year kernel launch")
+                             "transport3d_year cooperative launch")
         transport3d_year_launches += 1
         return out
 
     # the operand tensors must outlive every launch that reads them
-    year.operands = operands
+    year.operands = (operands, sel, months)
+    year.plan = plan
     return year

@@ -49,10 +49,11 @@ import torch
 
 from .compute import resolve_device
 from .imex_cuda import cuda_error, load_library
-from .transport3d import (
+from .transport3d import (  # noqa: F401 (SEL_BITS, pack_selectors: here too)
+    SEL_BITS,
     STENCIL_OFFSETS,
+    pack_selectors,
     transport_stencil_coef,
-    upwind3_selectors,
 )
 from .transport3d_cuda import (
     SEC_PER_YEAR,
@@ -92,25 +93,6 @@ def cuda_launches_per_year(n_steps):
     """CUDA kernel launches one year enqueues: the first CN half step, then
     one fused step (Heun and CN) a step"""
     return 1 + int(n_steps)
-
-
-# the bits of the selector byte, csrc/transport3d_stream_passes.cuh's SelBit
-SEL_BITS = ("wet", "sel3p_e", "sel3n_e", "sel3p_n", "sel3n_n", "sel3p_t",
-            "sel3n_t")
-
-
-def pack_selectors(wet):
-    """the byte a cell the fused step reads for its upwind3 faces: bit 0 the
-    wet mask, bits 1-6 the far-cell selectors of the cell's east, north and
-    top faces (ops/transport3d.py::upwind3_selectors: shifts of `wet`,
-    periodic in longitude, zero past the grid in latitude and depth), in
-    SEL_BITS order.  wet: (nz, nlat, nlon) 0/1 tensor; returns uint8 on its
-    device."""
-    fields = {"wet": wet, **upwind3_selectors(wet)}
-    out = torch.zeros(wet.shape, dtype=torch.uint8, device=wet.device)
-    for pos, name in enumerate(SEL_BITS):
-        out |= (fields[name] != 0).to(torch.uint8) << pos
-    return out
 
 
 def _factor_rate_field(arr, wet):

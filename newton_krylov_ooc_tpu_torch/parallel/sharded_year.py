@@ -11,9 +11,10 @@ decomposition as the JAX package's shard_map:
     when the devices differ -- zeros at the physical edges, where the face
     arrays are zero too, so the boundary shards need no special case;
   * the blocked year (build_sharded_year_blocked, the JAX package's
-    build_sharded_year_pallas) runs k interior steps at a time on each shard
-    through kernel B3 (ops/imex_block_cuda.py) on a window extended by 2k
-    exchanged halo columns a side.
+    build_sharded_year_pallas) runs k interior steps at a time on each
+    shard's window extended by 2k halo columns a side; on a card, kernel B3
+    (ops/imex_block_cuda.py) runs every shard of the card and the whole
+    interior in one launch, its halos moving through device memory.
 
 State layout: the solver's state is one (module_batch, T, nz, ny) tensor on
 the mesh's first device.  Between years the reductions and the
@@ -31,6 +32,8 @@ here: ShardedPhosphorusKernel and the per-step year's column-local
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -39,7 +42,12 @@ from ..models.py_driver_2d.iage import SURF_SLOW_FACTOR, surf_restore_rate
 from ..models.py_driver_2d.incore import _warn_if_explicit_unstable
 from ..ops.banded import banded_lu_factor_blocks, banded_lu_solve_blocks
 from ..ops.imex import _kahan_add, cn_vertical_increment
-from ..ops.imex_block_cuda import pack_block_consts, plain_block, step_block
+from ..ops.imex_block_cuda import (
+    SlabRun,
+    _consts_on,
+    pack_block_consts,
+    plain_block,
+)
 from ..ops.tridiag import pcr_solve
 from ..utils.regions import comp_scalef_lob, region_mean_weights
 from .mesh import gather_state, shard_state
@@ -98,9 +106,17 @@ class ShardedYearData:
         self.dz_mid_r = grid.dz_mid_r.numpy()
 
 
+# neighbour slices the host moved for the blocked and per-step years' halos
+# in this process (each `width` columns of one shard's neighbour, and each
+# ghost slab the blocked year's kernel route fills); callers reset it to 0
+# to count a run's
+halo_copies = 0
+
+
 def _halo_cat(blocks, mi, sj, width):
     """blocks[mi][sj] with `width` columns of each ypos neighbour on either
     side (moved to its device), zeros past the mesh's edges"""
+    global halo_copies
     v = blocks[mi][sj]
     row = blocks[mi]
     edge = v.shape[:-1] + (width,)
@@ -108,6 +124,7 @@ def _halo_cat(blocks, mi, sj, width):
             else v.new_zeros(edge))
     right = (row[sj + 1][..., :width].to(v.device) if sj < len(row) - 1
              else v.new_zeros(edge))
+    halo_copies += (sj > 0) + (sj < len(row) - 1)
     return torch.cat([left, v, right], dim=-1)
 
 
@@ -655,6 +672,60 @@ class ShardedForcedFamilyKernel(_FamilyKernel):
         return scalef
 
 
+class Slab(NamedTuple):
+    """one slab of a launch group of the blocked year's kernel route: the
+    shard whose window constants it reads, the shard whose columns a ghost
+    slab mirrors (None for the shard itself), its side of `shard` (0 the
+    shard, -1 a ghost to its left, +1 to its right) and its neighbour slabs
+    in the group (-1: closed)"""
+    shard: tuple
+    source: tuple
+    side: int
+    left: int
+    right: int
+
+
+def slab_layout(keys):
+    """the launch groups of a blocked year: keys[mi][sj] is shard (mi, sj)'s
+    group key (by default its device: every shard of a card in one launch).
+    Returns [(key, [Slab, ...]), ...] in the order the keys first appear,
+    each group's shards in mesh order; a shard whose ypos neighbour lies in
+    another group gets a ghost slab on that side, which the host fills
+    from the neighbour before every block of k steps."""
+    order = []
+    for row in keys:
+        for key in row:
+            if key not in order:
+                order.append(key)
+    groups = []
+    for key in order:
+        slabs, index = [], {}
+        for mi, row in enumerate(keys):
+            for sj, k in enumerate(row):
+                if k != key:
+                    continue
+                if sj > 0 and row[sj - 1] != key:
+                    slabs.append([(mi, sj), (mi, sj - 1), -1, -1, None])
+                index[(mi, sj)] = len(slabs)
+                slabs.append([(mi, sj), None, 0, None, None])
+                if sj < len(row) - 1 and row[sj + 1] != key:
+                    slabs.append([(mi, sj), (mi, sj + 1), 1, None, -1])
+        for q, slab in enumerate(slabs):
+            (mi, sj), _, side, left, right = slab
+            if side == -1:
+                slab[4] = index[(mi, sj)]
+            elif side == 1:
+                slab[3] = index[(mi, sj)]
+            else:
+                slab[3] = (q - 1 if sj > 0 and keys[mi][sj - 1] != key
+                           else index.get((mi, sj - 1), -1))
+                slab[4] = (q + 1 if sj < len(keys[mi]) - 1
+                           and keys[mi][sj + 1] != key
+                           else index.get((mi, sj + 1), -1))
+        groups.append((key, [Slab(*slab) for slab in slabs]))
+    return groups
+
+
 def _blocked_aging(aging, b_dim, tr_dim, nz_dim):
     """the blocked year's source as (B, T) rates or (B, T, nz) profiles"""
     if aging.shape in ((b_dim, tr_dim), (b_dim * tr_dim,)):
@@ -672,11 +743,71 @@ def _blocked_aging(aging, b_dim, tr_dim, nz_dim):
     )
 
 
+def _kernel_interior(groups, shards, mesh, dims, dt, k, t_block, n_inner):
+    """interior(ys, cs) -> (ys, cs): the blocked year's n_inner interior
+    steps through kernel B3, one SlabRun a launch group (slab_layout); ys,
+    cs: mesh-shaped lists of (C, nz, nyl) shard states after the leading
+    half step.  One group without ghost slabs (every shard on one card)
+    runs them in one launch; otherwise every block of k steps is a launch
+    a group, after the host fills the ghost slabs from the states at the
+    block's start."""
+    c_dim, nz, nyl, h = dims
+    runs = []
+    for _, slabs in groups:
+        specs = []
+        for sl in slabs:
+            w, xoff = {0: (nyl, h), -1: (h, 0), 1: (h, h + nyl)}[sl.side]
+            specs.append(dict(consts=shards[sl.shard[0]][sl.shard[1]]["consts"],
+                              w=w, xoff=xoff, left=sl.left, right=sl.right))
+        dev = mesh.devices[slabs[0].shard[0]][slabs[0].shard[1]]
+        run = SlabRun(specs, c_dim, nz, dt, k, dev)
+        runs.append((run, slabs, torch.as_tensor(t_block, device=dev)))
+    # where each shard's state lies: (group, slab)
+    home = {sl.shard: (g, q) for g, (_, slabs, _) in enumerate(runs)
+            for q, sl in enumerate(slabs) if sl.side == 0}
+    whole = len(runs) == 1 and all(sl.side == 0 for sl in runs[0][1])
+
+    def interior(ys, cs):
+        global halo_copies
+        for (mi, sj), (g, q) in home.items():
+            runs[g][0].y[q][0].copy_(ys[mi][sj])
+            runs[g][0].c[q][0].copy_(cs[mi][sj])
+        bufs = [0] * len(runs)
+        if whole and n_inner:
+            bufs[0] = runs[0][0].launch(0, n_inner, 0, runs[0][2])
+        elif n_inner:
+            for g0 in range(0, n_inner, k):
+                for g, (run, slabs, _) in enumerate(runs):
+                    for q, sl in enumerate(slabs):
+                        if sl.source is None:
+                            continue
+                        gs, qs = home[sl.source]
+                        src = runs[gs][0]
+                        cols = (slice(nyl - h, nyl) if sl.side < 0
+                                else slice(0, h))
+                        run.y[q][bufs[g]].copy_(src.y[qs][bufs[gs]][..., cols])
+                        run.c[q][bufs[g]].copy_(src.c[qs][bufs[gs]][..., cols])
+                        halo_copies += 2
+                for g, (run, _, t_dev) in enumerate(runs):
+                    bufs[g] = run.launch(g0, min(k, n_inner - g0), bufs[g],
+                                         t_dev)
+        ys = [[runs[home[(mi, sj)][0]][0].y[home[(mi, sj)][1]][
+            bufs[home[(mi, sj)][0]]] for sj in range(len(row))]
+            for mi, row in enumerate(ys)]
+        cs = [[runs[home[(mi, sj)][0]][0].c[home[(mi, sj)][1]][
+            bufs[home[(mi, sj)][0]]] for sj in range(len(row))]
+            for mi, row in enumerate(cs)]
+        return ys, cs
+
+    return interior
+
+
 def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
-                   n_steps, block_steps, make_block):
-    """the blocked sharded year with step blocks from
-    make_block(consts, shape, dt, j_steps, device=); its CN half steps
-    solve in float64"""
+                   n_steps, block_steps, kernel, group_of=None):
+    """the blocked sharded year: its interior through kernel B3 (kernel,
+    on CUDA devices) or through B3's plain step block with host halo
+    exchanges; its CN half steps solve in float64.  group_of(mi, sj,
+    device): the kernel's launch group of a shard (by default its device)"""
     n_module, n_space = mesh.shape["module"], mesh.shape["space"]
     nz, ny = len(depth), len(ypos)
     diag = np.asarray(diag, np.float32)
@@ -731,6 +862,11 @@ def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
     t_rest = np.float32(t0 + dt * k * m_blocks)
     t_last = t0 + (n_steps - 1) * dt
     shape = (c_dim, nz, nx)
+    on_card = [[dev.type == "cuda" for dev in row] for row in mesh.devices]
+    if kernel and any(map(any, on_card)) and not all(map(all, on_card)):
+        raise ValueError("the blocked year's mesh lies on the CPU or on CUDA "
+                         "devices, not on both")
+    kernel = kernel and all(map(all, on_card))
 
     def setup(mi, sj, dev):
         rows = slice(mi * b_loc, (mi + 1) * b_loc)
@@ -752,11 +888,13 @@ def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
         vfo = vfaces_g[:, c0:c0 + nyl + 1]
         hfo = hfaces_g[:, c0:c0 + nyl + 1]
         src = put(src_mb)
+        host = not kernel
         return {
-            "blk_k": (make_block(consts, shape, dt, k, device=dev)
-                      if m_blocks else None),
-            "blk_r": (make_block(consts, shape, dt, r_steps, device=dev)
-                      if r_steps else None),
+            "consts": _consts_on(consts, dev) if kernel else None,
+            "blk_k": (plain_block(consts, shape, dt, k, device=dev)
+                      if m_blocks and host else None),
+            "blk_r": (plain_block(consts, shape, dt, r_steps, device=dev)
+                      if r_steps and host else None),
             "diag": put(diag_mb[:, :, c0:c0 + nyl]),
             # (C, 1, 1) uniform rates or (C, nz, 1) depth profiles
             "src": src[:, None, None] if src.dim() == 1 else src[:, :, None],
@@ -805,16 +943,29 @@ def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
         return _unzip(each(lambda sh, mi, sj: [
             arr[..., h:-h] for arr in sh[name](*ext[mi][sj], t_start)]))
 
+    def host_interior(ys, cs):
+        for tb in t_starts:
+            ys, cs = run_blocks(ys, cs, "blk_k", tb)
+        if r_steps:
+            ys, cs = run_blocks(ys, cs, "blk_r", t_rest)
+        return ys, cs
+
+    interior = host_interior
+    if kernel:
+        keys = [[(group_of or (lambda mi, sj, dev: dev))(mi, sj, dev)
+                 for sj, dev in enumerate(row)]
+                for mi, row in enumerate(mesh.devices)]
+        interior = _kernel_interior(
+            slab_layout(keys), shards, mesh, (c_dim, nz, nyl, h), dt, k,
+            np.append(t_starts, t_rest).astype(np.float32), n_inner)
+
     def year(y0):
         blocks = shard_state(mesh, y0.to(f32))
         ys = [[blk.reshape(c_dim, nz, nyl) for blk in row] for row in blocks]
         # leading CN half-step (column-local)
         ys, cs = _unzip(each(lambda sh, mi, sj: cn_half(
             sh, ys[mi][sj], torch.zeros_like(ys[mi][sj]), t0)))
-        for tb in t_starts:
-            ys, cs = run_blocks(ys, cs, "blk_k", tb)
-        if r_steps:
-            ys, cs = run_blocks(ys, cs, "blk_r", t_rest)
+        ys, cs = interior(ys, cs)
         # final Heun (one halo column a side) and trailing CN half-step
         f1 = each(lambda sh, mi, sj: tend1(sh, _halo_cat(ys, mi, sj, 1)))
         y_mid = each(lambda sh, mi, sj: ys[mi][sj] + dt * f1[mi][sj])
@@ -832,25 +983,30 @@ def _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
 def build_sharded_year_blocked(mesh, depth, ypos, modelinfo, diag, aging,
                                t_span, n_steps, block_steps=8):
     """the blocked sharded year (the JAX package's
-    build_sharded_year_pallas): kernel B3 step blocks between halo
-    exchanges, float32.
+    build_sharded_year_pallas): blocks of k = block_steps interior steps
+    between halo exchanges, float32.
 
     The per-step year (build_sharded_year) pays a dozen small operations a
-    step; this one runs blocks of k = block_steps interior steps as one
-    step block per shard (ops/imex_block_cuda.py: csrc/iage_block.cu on a
-    CUDA device, its plain version on the CPU), exchanging 2k ghost columns
-    a side between blocks.  Each Heun stage pair consumes two ghost
-    columns, so a depth-2k halo sustains exactly k steps; owned columns see
-    the same operations on the same values whatever the mesh's shape.  The
-    year decomposes as the single-device year does (interior Strang
-    half-steps merged): a leading CN(dt/2), (n_steps-1) x [Heun; CN(dt)] in
-    blocks of k plus a remainder block, and a final Heun (one-column halo)
-    and trailing CN(dt/2) in plain PyTorch.  Every CN column solve, in the
+    step; this one runs blocks of k interior steps on every shard's window
+    extended by 2k ghost columns a side.  Each Heun stage pair consumes two
+    ghost columns, so a depth-2k halo sustains exactly k steps; owned
+    columns see the same operations on the same values whatever the mesh's
+    shape.  On CUDA devices the interior runs through kernel B3
+    (ops/imex_block_cuda.py::SlabRun, csrc/iage_block.cu): the shards of
+    each device in one cooperative launch, the whole interior at once when
+    the mesh lies on one card, otherwise one launch a device and block with
+    the host filling ghost slabs from the other devices' shards; the
+    result is the same bit for bit.  On the CPU each block is B3's plain
+    step block on each shard, with host halo exchanges.  The year
+    decomposes as the single-device year does (interior Strang half-steps
+    merged): a leading CN(dt/2), (n_steps-1) x [Heun; CN(dt)] in blocks of
+    k plus a remainder block, and a final Heun (one-column halo) and
+    trailing CN(dt/2) in plain PyTorch.  Every CN column solve, in the
     blocks and the half steps, runs in float64 from the float32 state (at
     256 levels a float32 solve loses the slow modes of a rough state).
-    Block start times are float32,
-    and so is each step's time inside a block: an ulp in the mixing
-    profile's time grows about 1e3-fold through its exponential.
+    Block start times are float32, and so is each step's time inside a
+    block: an ulp in the mixing profile's time grows about 1e3-fold through
+    its exponential.
 
     diag: (module_batch, tracer, nz, ny) implicit local rates
     aging: (module_batch, tracer) explicit source rates (or (B, T, 1, 1)),
@@ -858,10 +1014,12 @@ def build_sharded_year_blocked(mesh, depth, ypos, modelinfo, diag, aging,
     Returns year(y) for y (module_batch, tracer, nz, ny) float32; the result
     lies on the mesh's first device.  Raises ValueError when the batch or
     grid do not split over the mesh, for an aging shape it does not take,
-    and when the halo 2 block_steps exceeds a shard's width.
+    when the halo 2 block_steps exceeds a shard's width, for a mesh on both
+    the CPU and CUDA devices, and when a group's tiles do not fit on its
+    card at once (ops/imex_block_cuda.py::block_plan).
     """
     return _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
-                          n_steps, block_steps, step_block)
+                          n_steps, block_steps, True)
 
 
 def build_sharded_year_blocked_plain(mesh, depth, ypos, modelinfo, diag,
@@ -869,4 +1027,4 @@ def build_sharded_year_blocked_plain(mesh, depth, ypos, modelinfo, diag,
     """build_sharded_year_blocked with B3's plain version on every device
     (the reference the kernel is held against on the card)"""
     return _build_blocked(mesh, depth, ypos, modelinfo, diag, aging, t_span,
-                          n_steps, block_steps, plain_block)
+                          n_steps, block_steps, False)

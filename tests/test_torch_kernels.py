@@ -31,6 +31,7 @@ from newton_krylov_ooc_tpu_torch.ops import (
 )
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel import mesh as port_mesh
+from newton_krylov_ooc_tpu_torch.parallel import sharded_year
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     ShardedTransport3dKernel,
     build_sharded_transport3d_year,
@@ -162,7 +163,8 @@ def _transport3d_years(case, device, shape=(6, 12, 10), n_steps=480):
     rng = np.random.default_rng(17)
     circ["WTT"] = rng.uniform(-2.0e9, 2.0e9, circ["WTT"].shape)
     specs = ABIO_SPECS if case == "coupled" else FAMILY_SPECS
-    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, specs)
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(
+        circ, specs, adv_type="centered" if case == "centred" else "upwind3")
     args = (kv, dz_r, diag, src, (0.0, transport3d_cuda.SEC_PER_YEAR),
             n_steps)
     coef32 = {key: None if arr is None else arr.to(device, torch.float32)
@@ -176,9 +178,27 @@ def _transport3d_years(case, device, shape=(6, 12, 10), n_steps=480):
             y0)
 
 
-@pytest.mark.parametrize("case", ["steady", "coupled", "seasonal"])
-def test_transport3d_year_kernel_matches_plain(cuda_device, case):
-    year_k, year_p, y0 = _transport3d_years(case, cuda_device)
+# B4's layouts on a 13 x 11 grid, which no tile divides evenly: the card's
+# own plan (every tile resident, one block each), resident tiles of many
+# columns (7 blocks), and tiles walked by 8 blocks with their state in
+# device memory (2000 bytes of shared memory a block)
+T3D_LAYOUTS = {"fit": {}, "ragged": {"max_blocks": 7},
+               "walk": {"smem_limit": 2000, "max_blocks": 8}}
+
+
+@pytest.mark.parametrize("layout", sorted(T3D_LAYOUTS))
+@pytest.mark.parametrize("case", ["steady", "coupled", "seasonal", "centred"])
+def test_transport3d_year_kernel_matches_plain(cuda_device, case, layout,
+                                               monkeypatch):
+    card_plan = transport3d_cuda._card_plan
+    monkeypatch.setattr(
+        transport3d_cuda, "_card_plan",
+        lambda *args: card_plan(*args[:6], **T3D_LAYOUTS[layout]))
+    year_k, year_p, y0 = _transport3d_years(case, cuda_device, (6, 13, 11))
+    plan = year_k.plan
+    assert plan.resident == (layout != "walk")
+    if layout == "ragged":
+        assert (13 % plan.ty or 11 % plan.tx) and plan.grid <= 7
     before = transport3d_cuda.transport3d_year_launches
     y_k = year_k(y0)
     torch.cuda.synchronize()
@@ -190,6 +210,20 @@ def test_transport3d_year_kernel_matches_plain(cuda_device, case):
     assert float((y_k - y_p).abs().max()) / scale < TOL
     assert float((y_k - y0).abs().max()) / scale > 1e-3  # the year moved y
     assert float(y_k[:, :, 3, 2].abs().max()) == 0.0  # land stays dry
+
+
+@pytest.mark.parametrize("case", ["steady", "coupled"])
+def test_transport3d_year_kernel_at_the_spinup_example_grid(cuda_device,
+                                                            case):
+    """phase 12's one-shard grid, 10 x 24 x 20"""
+    year_k, year_p, y0 = _transport3d_years(case, cuda_device, (10, 24, 20),
+                                            n_steps=365)
+    y_k = year_k(y0)
+    y_p = year_p(y0)
+    scale = float(y_p.abs().max())
+    assert torch.isfinite(y_k).all()
+    assert float((y_k - y_p).abs().max()) / scale < TOL
+    assert float(y_k[:, :, 3, 2].abs().max()) == 0.0
 
 
 def test_transport3d_year_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -375,12 +409,10 @@ def test_step_block_kernel_matches_plain(cuda_device, c_dim, nz, nx, j_steps,
     y, c = _on(cuda_device, y0, c0)
     block = imex_block_cuda.build_iage_step_block(*args, dt, j_steps,
                                                   device=cuda_device)
-    j_inner, _ = block.plan
     before = imex_block_cuda.iage_block_launches
     y_k, c_k = block(y, c, t_start)
     torch.cuda.synchronize()
-    assert (imex_block_cuda.iage_block_launches - before
-            == -(-j_steps // j_inner))
+    assert imex_block_cuda.iage_block_launches - before == 1
     y_p, c_p = imex_block_cuda.build_iage_step_block_plain(
         *args, dt, j_steps, device=cuda_device)(y, c, t_start)
     assert torch.isfinite(y_k).all() and torch.isfinite(c_k).all()
@@ -391,22 +423,23 @@ def test_step_block_kernel_matches_plain(cuda_device, c_dim, nz, nx, j_steps,
 
 
 @pytest.mark.parametrize("nx, smem_columns, plan", [
-    (20, 12, (1, 8)),    # tiles of 8, 8 and a ragged 4; one step a launch
-    (50, 40, (2, 32)),   # tiles of 32 and a ragged 18; two steps a launch
+    (20, 20, (1, 16)),   # tiles of 16 and a ragged 4; a step an interval
+    (50, 24, (2, 16)),   # three tiles of 16 and a ragged 2; two steps
 ])
 def test_step_block_tiles_and_split_steps_match_one_block(
         cuda_device, nx, smem_columns, plan):
-    """a shared-memory budget that forces tiles and split steps gives, on
-    every column, exactly what one block over the whole window gives: the
-    halo's error never reaches an owned column"""
+    """a shared-memory budget that forces shorter intervals between halo
+    exchanges gives, on every column, exactly what the card's own plan
+    gives: the halo's error never reaches an owned column"""
     c_dim, nz, j_steps = 3, 10, 4
     args, y0, c0 = _b3_window(c_dim, nz, nx, False)
     dt = physics.SEC_PER_YEAR / 2920
     y, c = _on(cuda_device, y0, c0)
     whole = imex_block_cuda.build_iage_step_block(*args, dt, j_steps,
                                                   device=cuda_device)
-    assert whole.plan == (j_steps, nx)
-    limit = 4 * (11 * nz * smem_columns + 3 * nz - 2)
+    assert whole.plan == (4, 16)
+    limit = imex_block_cuda._library().iage_block_smem_bytes(nz,
+                                                             smem_columns)
     tiled = imex_block_cuda.build_iage_step_block(
         *args, dt, j_steps, device=cuda_device, smem_limit=limit)
     assert tiled.plan == plan
@@ -448,14 +481,54 @@ def test_blocked_year_kernel_matches_plain_and_one_shard(cuda_device):
     before = imex_block_cuda.iage_block_launches
     y1 = build_sharded_year_blocked(one, *args, block_steps=k)(y0)
     torch.cuda.synchronize()
-    assert imex_block_cuda.iage_block_launches - before == -(-(n_steps - 1)
-                                                             // k)
+    # the year's interior in one launch
+    assert imex_block_cuda.iage_block_launches - before == 1
     y_p = build_sharded_year_blocked_plain(one, *args, block_steps=k)(y0)
     y4 = build_sharded_year_blocked(four, *args, block_steps=k)(y0)
     scale = float(y_p.abs().max())
     assert torch.isfinite(y1).all() and y1.device == y0.device
     assert float((y1 - y_p).abs().max()) / scale < TOL
     assert float((y4 - y1).abs().max()) / scale < TOL
+
+
+@pytest.mark.parametrize("nz, n_steps, k", [(24, 30, 4), (256, 20, 3)])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 4), (2, 4), (1, 8)])
+def test_blocked_year_one_launch_matches_per_shard_launches(
+        cuda_device, shape, nz, n_steps, k):
+    """every shard of the card in one launch for the year's interior, bit
+    for bit the year whose shards each run their own launch a block of k
+    steps with host-filled ghost slabs (as shards on different cards do),
+    with a remainder block"""
+    ny = 64
+    depth, ypos = build_axes(nz, ny)
+    rate = surf_restore_rate(depth)
+    batch = shape[0]
+    diag = np.zeros((batch, 2, nz, ny), np.float32)
+    diag[:, 0, 0, :] = -rate
+    diag[:, 1, 0, :] = -SURF_SLOW_FACTOR * rate
+    aging = np.full((batch, 2), 1.0 / physics.SEC_PER_YEAR, np.float32)
+    span = (0.0, n_steps * physics.SEC_PER_YEAR / 2920.0)
+    args = (depth, ypos, MODELINFO, diag, aging, span, n_steps)
+    assert (n_steps - 1) % k
+    mesh = port_mesh.make_mesh(*shape, devices=[cuda_device] * (shape[0]
+                                                               * shape[1]))
+    y0 = torch.as_tensor(np.random.default_rng(43).uniform(
+        0.0, 2.0, (batch, 2, nz, ny)), dtype=torch.float32, device=cuda_device)
+    before = imex_block_cuda.iage_block_launches
+    y_one = build_sharded_year_blocked(mesh, *args, block_steps=k)(y0)
+    torch.cuda.synchronize()
+    assert imex_block_cuda.iage_block_launches - before == 1
+    before = imex_block_cuda.iage_block_launches
+    # a launch group a shard, as if each shard lay on its own card
+    y_each = sharded_year._build_blocked(
+        mesh, *args, k, True, group_of=lambda mi, sj, dev: (mi, sj))(y0)
+    torch.cuda.synchronize()
+    n_shards = shape[0] * shape[1]
+    # one shard alone has no ghost slabs: its interior is one launch
+    per_shard = 1 if n_shards == 1 else n_shards * -(-(n_steps - 1) // k)
+    assert imex_block_cuda.iage_block_launches - before == per_shard
+    assert torch.isfinite(y_one).all()
+    assert torch.equal(y_one, y_each)
 
 
 def test_blocked_year_kernel_deep_columns_from_noise(cuda_device):
@@ -502,8 +575,8 @@ def test_sharded_iage_kernel_runs_b3(cuda_device):
     fcn = kernel.comp_fcn(x)
     kernel.jvp(x, fcn, fcn)
     torch.cuda.synchronize()
-    # 17 blocks and a remainder, on each of two shards, for each year
-    assert imex_block_cuda.iage_block_launches - before == 2 * 2 * 18
+    # both shards of the card and the year's interior in one launch a year
+    assert imex_block_cuda.iage_block_launches - before == 2
 
 
 # B6's cases: upwind3 with dense and factored rates, the float32 stencil,

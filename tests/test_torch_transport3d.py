@@ -336,4 +336,52 @@ def test_season_samples_are_the_plain_years_times(years):
         wq = torch.tensor(wq)
         table.append(float(((1.0 - wq) * arr[a] + wq * arr[b])[0]))
     assert plain == table
-    assert t3c.cuda_launches_per_year(n_steps) == 3 * n_steps + 1
+    # the kernel runs the year in one launch, two grid-wide barriers a step
+    assert t3c.cuda_launches_per_year(n_steps) == 1
+    assert t3c.grid_syncs_per_year(n_steps) == 2 * n_steps
+    # the device table holds the same samples
+    for got, want in zip(t3c.month_table(SPAN, n_steps, 4, "cpu"),
+                         (m0, m1, w)):
+        assert got.dtype == torch.as_tensor(want).dtype
+        assert np.array_equal(got.numpy(), want)
+
+
+def _smem(t_dim, nz, ty, tx, resident):
+    """csrc/transport3d_year.cu's count"""
+    tile = t_dim * nz * ty * tx
+    return 4 * (t_dim * nz * (ty + 4) * (tx + 4) + (3 if resident else 1)
+                * tile)
+
+
+@pytest.mark.parametrize("shape, plan", [
+    # gx3, T = 2: 130 resident tiles of 9 x 10 columns on 132 SMs
+    ((2, 60, 116, 100), (9, 10, True, 130)),
+    # phase 12's grid: 120 tiles of 2 x 2
+    ((2, 10, 24, 20), (2, 2, True, 120)),
+    # gx1, T = 1: the state does not fit, 8 x 32 tiles walked by 132 blocks
+    ((1, 60, 384, 320), (8, 32, False, 132)),
+])
+def test_year_plan_tiles_whole_columns(shape, plan):
+    """B4's tiles: the fewest columns whose tiles all fit the card at once
+    with their state resident, else walked tiles"""
+    got = t3c.year_plan(_smem, 232448, *shape, lambda resident, smem: 132)
+    assert tuple(got) == plan
+    assert _smem(*shape[:2], got.ty, got.tx, got.resident) <= 232448
+    t_dim, nz, nlat, nlon = shape
+    if got.resident:
+        assert -(-nlat // got.ty) * -(-nlon // got.tx) == got.grid
+        # every tile of fewer columns needs more blocks than the card holds
+        assert all(-(-nlat // ty) * -(-nlon // tx) > 132
+                   for ty in range(1, nlat + 1) for tx in range(1, nlon + 1)
+                   if ty * tx < got.ty * got.tx)
+
+
+def test_year_plan_walks_and_refuses():
+    # a budget of 2000 bytes and 8 blocks: 2 x 2 tiles, walked
+    assert tuple(t3c.year_plan(_smem, 2000, 2, 6, 13, 11,
+                               lambda resident, smem: 8)) == (2, 2, False, 8)
+    # seven blocks: resident tiles of 2 x 11, the last row ragged
+    assert tuple(t3c.year_plan(_smem, 232448, 2, 6, 13, 11,
+                               lambda resident, smem: 7)) == (2, 11, True, 7)
+    with pytest.raises(ValueError, match="shared memory"):
+        t3c.year_plan(_smem, 1000, 2, 60, 13, 11, lambda resident, smem: 8)
