@@ -25,10 +25,13 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     aging source on (F) and zeroed (the JVP route): each full year timed,
     and each held against the plain f32 and f64 years over the first tenth
     of the year (876 steps; the F route's tenth, kernel and plain f32, are
-    its JSON entry's times);
+    its JSON entry's times); iage_table, the table of the year's CN solves
+    that iage_year and iage_year_v1 stream, against its plain version over
+    the tenth (its JSON entry's times) and its full year's build timed;
   3 the iage Newton-Krylov solve through the port's CLI entry point,
-    checked for convergence, for launches of the kernel, and against a
-    float64 plain evaluation of F at the solution;
+    checked for convergence, for launches of the kernel and of the table
+    kernel (one table for the F and JVP years), and against a float64
+    plain evaluation of F at the solution;
   4 phosphorus_year against its plain PyTorch version at 40 x 50 x 8760,
     from the initial iterate and from a constant 0.5, timed, with the
     kernel's one-year drift of total phosphorus: both held against the
@@ -59,6 +62,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     11 and 13 each print the kernel times PERF.md gives for the design
     before the fused step first, and this run's beside them last; phases
     6, 7, 9, 10 and 12 those before B3's and B4's persistent launches;
+    phases 2, 3 and 14 those before B1's and B1v1's table and two barriers
+    a step;
   9 iage_block in the JAX bench's million-cell blocked year (256 x 2000,
     one module of two tracers, 12,615 steps, blocks of 8 steps, a (1, 1)
     mesh): the full year timed; over its first tenth against the plain f32
@@ -205,6 +210,13 @@ KV_EDGE_OPS = 35
 # twice (18 each), the stage state (2), the Heun Kahan add (6), the CN
 # Thomas solve with its Kahan add (28)
 IAGE_CELL_OPS = 72
+# csrc/iage_year.cu's table kernel per cell, channel and solve: the CN
+# coefficients (8) and the Thomas factors m, w, cp (6)
+TABLE_CELL_OPS = 14
+# each table field vs its plain f32 version, of the field's max: float32
+# rounding of the factor recursion in another order (the plain f32 table
+# is within 5e-6 of float64 at 40 x 50 x 8760)
+TABLE_TOL = 5e-5
 # csrc/phosphorus_year.cu per cell and step, all three tracers: tend3 twice
 # (71 each: three tendencies, uptake, remineralisation, sinking), stage
 # states (6), three Heun Kahan adds (18), three CN solves without the
@@ -281,9 +293,12 @@ ROUGH_TOL = 5e-5
 # the kernels' ms, and the solves' seconds, of the designs before this
 # tree's (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
 # this run's: phases 8, 11 and 13 before the fused step, phases 6, 7, 9, 10
-# and 12 before B3's and B4's persistent launches (ranges over earlier runs
-# where PERF.md gives them)
+# and 12 before B3's and B4's persistent launches, phases 2, 3 and 14 before
+# B1's and B1v1's table (ranges over earlier runs where PERF.md gives them)
 EARLIER_MS = {
+    2: {"F_year": 125.65, "JVP_year": 95.45, "F_tenth": 12.46},
+    3: {"solve_seconds": 1.5055},
+    14: {"F_year": 156.85, "JVP_year": 152.04, "F_tenth": 15.47},
     6: {"steady_year": 416.28},
     7: {"solve_seconds": "5.94-5.95"},
     8: {"upwind3_year": 1570.17, "upwind3_400_steps": 315.02,
@@ -303,7 +318,8 @@ EARLIER_MS = {
          "gx1_1shard_k1_year": 22002.58, "gx1_4shards_k2_year": 25851.77},
 }
 EARLIER_DESIGN = {8: "the fused step", 11: "the fused step",
-                  13: "the fused step"}
+                  13: "the fused step", 2: "the table", 3: "the table",
+                  14: "the table"}
 
 
 def phase(num, title, **numbers):
@@ -357,6 +373,7 @@ def reset_counts():
     transport3d_sweep_cuda.transport3d_sweep_launches = 0
     transport3d_block_cuda.transport3d_block_launches = 0
     imex_cuda.iage_year_v1_launches = 0
+    imex_cuda.iage_table_launches = 0
     sharded_year.halo_copies = 0
 
 
@@ -411,6 +428,16 @@ def iage_bound(t_dim, nz, ny, n_steps):
     n_bytes = 4 * (3 * t_dim * nz * ny + grid2d_floats(nz, ny))
     n_ops = n_steps * (t_dim * nz * ny * IAGE_CELL_OPS
                        + (nz - 1) * ny * KV_EDGE_OPS)
+    return bound(n_bytes, n_ops)
+
+
+def table_bound(t_dim, nz, ny, n_steps):
+    """bound of one table of n_steps + 1 CN solves: the packed constants
+    read once, the table written once"""
+    layout = imex_cuda.table_layout(t_dim, nz, ny, n_steps)
+    n_bytes = layout["bytes"] + 4 * (grid2d_floats(nz, ny) + t_dim * nz * ny)
+    n_ops = layout["solves"] * ((nz - 1) * ny * KV_EDGE_OPS
+                                + t_dim * nz * ny * TABLE_CELL_OPS)
     return bound(n_bytes, n_ops)
 
 
@@ -1134,10 +1161,39 @@ def irf3d_sharded_solve_phase(device):
     return launches
 
 
+def table_phase(grid32, diag, span, device):
+    """phase 2's table kernel: the tenth's table against its plain f32
+    version, both timed, and the full year's build; returns (max abs error,
+    kernel ms, plain f32 ms) over the tenth"""
+    nz, ny = NZ, NY
+    short_span, short_steps = tenth((span, N_STEPS))
+    builds = [imex_cuda.build_iage_table(grid32, diag, short_span,
+                                         short_steps, device=device)
+              for _ in range(REPS + 1)]
+    ms = statistics.median(table.build_ms() for table in builds[1:])
+    times, h = imex_cuda.solve_times(short_span, short_steps)
+    plain, plain_ms = timed(imex_cuda.iage_table_plain, grid32, diag, times, h)
+    ours = imex_cuda.unpack_table(builds[-1].tensor, 2, nz, ny, short_steps)
+    errs = {name: rel_err(a, b, float(b.abs().max()))
+            for name, a, b in zip(("kv", "m", "w", "cp"), ours, plain)}
+    worst_abs = max(float((a - b).abs().max()) for a, b in zip(ours, plain))
+    year = [imex_cuda.build_iage_table(grid32, diag, span, N_STEPS,
+                                       device=device) for _ in range(2)]
+    phase(2, "iage_table vs plain", rel_err_tenth=errs, tol=TABLE_TOL,
+          kernel_ms_tenth=ms, plain_f32_ms_tenth=plain_ms,
+          year_build_ms=year[-1].build_ms(), year_table_bytes=year[-1].nbytes)
+    if not max(errs.values()) <= TABLE_TOL:
+        raise SystemExit(f"chip_smoke: the table disagrees with its plain "
+                         f"version: {errs} (bound {TABLE_TOL})")
+    return worst_abs, ms, plain_ms
+
+
 def iage_kernel_phase(depth, ypos, device):
     """phase 2: iage_year against its plain version at full size, the year
-    timed, the comparisons over its first tenth; returns (max abs error,
-    kernel ms, plain f32 ms) over the F route's tenth"""
+    timed, the comparisons over its first tenth, and the table kernel;
+    returns ((max abs error, kernel ms, plain f32 ms) over the F route's
+    tenth, the same of the table)"""
+    earlier_times(2)
     grids = {
         dtype: physics.make_grid(depth, ypos, incore_spinup.MODELINFO,
                                  device=device, dtype=dtype)
@@ -1153,7 +1209,7 @@ def iage_kernel_phase(depth, ypos, device):
               probe.init_iterate().cpu().numpy()),
         "JVP": (np.zeros((2, 1, 1)), rng.standard_normal((2, NZ, NY))),
     }
-    worst_abs, tenth_ms = 0.0, {}
+    worst_abs, tenth_ms, year_ms = 0.0, {}, {}
     for route, (source, y0_np) in inputs.items():
         args = {dtype: (grids[dtype], diag, source, span, N_STEPS)
                 for dtype in (torch.float32, torch.float64)}
@@ -1182,13 +1238,18 @@ def iage_kernel_phase(depth, ypos, device):
             )
         worst_abs = max(worst_abs, float((y_s - ref).abs().max()))
         tenth_ms[route] = (ms_s, ms_32)
+        year_ms[route] = ms
+    table = table_phase(grids[torch.float32], diag, span, device)
+    against_earlier(2, {"F_year": year_ms["F"], "JVP_year": year_ms["JVP"],
+                        "F_tenth": tenth_ms["F"][0]})
     # the JSON line's times are the F route's, over the tenth
-    return (worst_abs, *tenth_ms["F"])
+    return (worst_abs, *tenth_ms["F"]), table
 
 
 def iage_solve_phase(depth, ypos, device):
     """phase 3: the iage solve through the CLI entry point; returns the
-    kernel's launches"""
+    launches of the year kernel and of the table kernel"""
+    earlier_times(3)
     reset_counts()
     kernel, x, fcn, info = incore_spinup.main([
         str(NZ), str(NY), str(N_STEPS), "--device", "cuda",
@@ -1196,6 +1257,7 @@ def iage_solve_phase(depth, ypos, device):
     ])
     torch.cuda.synchronize()
     launches = imex_cuda.iage_year_launches
+    table_launches = imex_cuda.iage_table_launches
     rel = info["fcn_norm"] / info["x_norm"]
     krylov = [int(k) for k in info["krylov_iterations"]]
     # one F per Newton step's Armijo trial and fixed-point update, the
@@ -1211,6 +1273,9 @@ def iage_solve_phase(depth, ypos, device):
         raise SystemExit(
             f"chip_smoke: {launches} kernel launches, expected >= {min_launches}"
         )
+    if table_launches != 1:
+        raise SystemExit(f"chip_smoke: {table_launches} table launches in the "
+                         "solve, expected one for its F and JVP years")
     check = IageKernel(depth, ypos, incore_spinup.MODELINFO, device=device,
                        dtype=torch.float64, n_steps=N_STEPS)
     x64 = x.double()
@@ -1218,10 +1283,14 @@ def iage_solve_phase(depth, ypos, device):
     phase(3, "solve", newton_iterations=info["iterations"],
           krylov_iterations=krylov, seconds=info["seconds"],
           max_rel_resid=float(rel.max()), f64_plain_rel_resid=rel64,
-          kernel_launches=launches, max_ideal_age_years=float(x.max()))
+          kernel_launches=launches, table_launches=table_launches,
+          table_build_ms=kernel.table.build_ms(),
+          table_bytes=kernel.table.nbytes,
+          max_ideal_age_years=float(x.max()))
     if not rel64 < 1e-4:
         raise SystemExit(f"chip_smoke: f64 residual at the solution {rel64:.3e}")
-    return launches
+    against_earlier(3, {"solve_seconds": info["seconds"]})
+    return launches, table_launches
 
 
 def stable_step_count(ypos, base_steps):
@@ -1547,6 +1616,7 @@ def iage_v1_phase(depth, ypos, device):
     """phase 14: iage_year_v1 at phase 2's size, F and JVP, timed beside
     iage_year; returns (launches on its path, max abs error, kernel ms,
     plain f32 ms) over the F route's tenth"""
+    earlier_times(14)
     grids = {
         dtype: physics.make_grid(depth, ypos, incore_spinup.MODELINFO,
                                  device=device, dtype=dtype)
@@ -1606,6 +1676,8 @@ def iage_v1_phase(depth, ypos, device):
                 f"{err_64:.3e} vs f64 (bound {F64_TOL})")
         worst_abs = max(worst_abs, float((y_s - ref).abs().max()))
         tenth_ms[route] = (ms_s, ms_32)
+    against_earlier(14, {"F_year": ms_v1["F"], "JVP_year": ms_v1["JVP"],
+                         "F_tenth": tenth_ms["F"][0]})
     return (launches, worst_abs, *tenth_ms["F"])
 
 
@@ -1678,8 +1750,9 @@ def main(argv=None):
               "need every phase", flush=True)
         return 0
 
-    worst_abs, iage_ms, iage_plain_ms = results[2]
-    launches = results[3]
+    (worst_abs, iage_ms, iage_plain_ms), table = results[2]
+    table_abs, table_ms, table_plain_ms = table
+    launches, table_launches = results[3]
     phos_abs, phos_ms, phos_plain_ms = results[4]
     phos_launches = results[5]
     t3d_abs, t3d_ms, t3d_plain_ms, t3d_bound, t3d_by = results[6]
@@ -1694,9 +1767,11 @@ def main(argv=None):
      b7_by) = results[13]
     v1_launches, v1_abs, v1_ms, v1_plain_ms = results[14]
 
-    # no single PyTorch call computes an IMEX year: library_ms is null
+    # no single PyTorch call computes an IMEX year or its table: library_ms
+    # is null
     # B1's and B2's times are over the first tenth of the year
     iage_bound_ms, iage_by = iage_bound(2, NZ, NY, CHECK_STEPS)
+    table_bound_ms, table_by = table_bound(2, NZ, NY, CHECK_STEPS)
     phos_bound_ms, phos_by = phosphorus_bound(NZ, NY, CHECK_STEPS)
     print(json.dumps({"kernels": [{
         "name": "iage_year",
@@ -1793,6 +1868,18 @@ def main(argv=None):
         "plain_ms": v1_plain_ms,
         "bound_ms": iage_bound_ms,
         "bound_by": iage_by,
+        "library_ms": None,
+    }, {
+        "name": "iage_table",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/iage_year.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/imex_pallas.py:267",
+        "launches": table_launches,
+        "max_abs_err": table_abs,
+        "ms": table_ms,
+        "plain_ms": table_plain_ms,
+        "bound_ms": table_bound_ms,
+        "bound_by": table_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

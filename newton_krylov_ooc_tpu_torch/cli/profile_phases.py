@@ -1,12 +1,22 @@
-"""where a step of B3 and of B4 goes, phase by phase, on the card.
+"""where a step of B1, B1v1, B3 and B4 goes, phase by phase, on the card.
 
-Both kernels run a year (or its interior) as one cooperative launch, so a
-profiler sees one kernel and no passes.  This script builds copies of
-csrc/iage_block.cu and csrc/transport3d_year.cu in which the first block
-adds clock64() differences into a device array at each of its phase ends
-(each mark first waits for the block at a __syncthreads), runs the port's
-own wrappers on those copies, and prints, as JSON lines, each phase's SM
-cycles a step:
+Each kernel runs a year (or its interior) as one launch, so a profiler sees
+one kernel and no passes.  This script builds copies of the kernels'
+sources with clock marks in the first block, runs the port's own wrappers
+on those copies, and prints, as JSON lines, each phase's SM cycles a step:
+  * B1 and B1v1 (iage_year): chip_smoke.py's phase 2 year (40 x 50, T = 2,
+    8760 steps) on three inputs -- the F route from the solver's initial
+    iterate, the JVP route (source zeroed) from seeded normal noise, and the
+    F route from seeded uniform noise, which tells whether a gap between
+    the first two follows the source or the data.  Every warp stamps
+    clock() where it ends a phase; after each block barrier warp 0 takes
+    each phase's latest stamp, so a phase runs from the previous phase's
+    latest stamp to its own, and a barrier from the latest arrival to the
+    release.  These marks add no barrier but cost some 200 cycles each: the
+    unmarked year's ms on each input is printed beside the marked one's.  Either design of csrc/iage_year.cu is
+    recognised (B1_DESIGNS): to profile the parent's, unpack the parent
+    tree into build/parent (git archive), copy this file into it and run
+    it there with --kernels B1 B1v1;
   * B4 (transport3d_year): the gx3 year of cli/irf3d_spinup.py's settings
     (60 x 116 x 100, T = 2, 2000 steps), and 200 steps at gx1 (60 x 384 x
     320, T = 1, tiles walked) -- stage (1): staging the state, f1, the grid
@@ -18,15 +28,19 @@ cycles a step:
     card -- the halo loads of an interval, the two explicit stages, the CN
     solve, publishing the tile's edges, the grid sync (with the wait for the
     slowest block), each a step.
-The marks' barriers cost a little; the year's wall time is printed beside.
+In B3 and B4 each mark first waits for the block at a __syncthreads and
+adds a clock64() difference; those barriers cost a little.  The year's wall
+time is printed beside each profile.
 
-    python -m newton_krylov_ooc_tpu_torch.cli.profile_phases
+    python -m newton_krylov_ooc_tpu_torch.cli.profile_phases \
+        [--kernels B1 B1v1 B3 B4]
 
 Needs a CUDA card and nvcc; the copies go to build/phase_probe/.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -39,6 +53,7 @@ import torch
 from ..models.irf_offline import synthetic
 from ..models.py_driver_2d import physics
 from ..models.py_driver_2d.iage import SURF_SLOW_FACTOR, surf_restore_rate
+from ..models.py_driver_2d.incore import IageKernel
 from ..ops import imex_block_cuda, imex_cuda, transport3d_cuda
 from ..ops.compute import resolve_device
 from ..parallel.mesh import make_mesh
@@ -65,6 +80,80 @@ extern "C" int %s_phases(unsigned long long* out) {
 B4_PHASES = ("stage_y", "f1", "sync_1", "stage_ys", "f2_heun", "cn",
              "publish", "sync_2")
 B3_PHASES = ("halo", "stage_1", "stage_2", "cn", "publish", "sync")
+KERNELS = ("B1", "B1v1", "B3", "B4")
+B1_SHAPE, B1_STEPS = (40, 50), 8760
+
+# B1's and B1v1's marks: STAMP(i) where a warp ends phase i; LEAVE(i, j)
+# right after a block barrier, in warp 0: phases i..j from their latest
+# stamps, and phase j + 1, the barrier, from the latest arrival to now
+STAMPS = """
+__device__ unsigned long long g_phase[16];
+__shared__ unsigned s_stamp[16][32];
+__shared__ unsigned s_tmark;
+#define PROBE_START do { if (blockIdx.x == 0 && threadIdx.x == 0) \\
+  s_tmark = (unsigned)clock(); } while (0)
+#define STAMP(i) do { if (blockIdx.x == 0) { __syncwarp(); \\
+  if ((threadIdx.x & 31) == 0) s_stamp[i][threadIdx.x >> 5] = \\
+  (unsigned)clock(); } } while (0)
+#define LEAVE(first, last) do { if (blockIdx.x == 0 && threadIdx.x < 32) { \\
+  unsigned now_ = __shfl_sync(0xffffffffu, (unsigned)clock(), 0); \\
+  unsigned prev_ = s_tmark; \\
+  for (int s_ = first; s_ <= last; ++s_) { \\
+    int d_ = threadIdx.x < (blockDim.x >> 5) \\
+        ? max(0, (int)(s_stamp[s_][threadIdx.x] - prev_)) : 0; \\
+    d_ = __reduce_max_sync(0xffffffffu, d_); \\
+    if (threadIdx.x == 0) g_phase[s_] += (unsigned)d_; \\
+    prev_ += (unsigned)d_; } \\
+  if (threadIdx.x == 0) { g_phase[last + 1] += now_ - prev_; \\
+    s_tmark = now_; } \\
+  __syncwarp(); } } while (0)
+"""
+# each design of csrc/iage_year.cu: a line only it has, then the marks as
+# (anchor, code before it, code after it), each anchor found after the
+# previous one, from the start anchor on; and its phases' labels
+B1_DESIGNS = {
+    "three barriers a step": {
+        "has": "cn_phase_pcr(y, comp, pcr, kv, diag, h_cn, nz, ny, g);",
+        "start": "__device__ inline void cn_phase_pcr(",
+        "marks": [
+            ("__syncthreads();", "STAMP(7); ", " LEAVE(7, 7);"),
+            ("__syncthreads();\n    p ^= 1;", "STAMP(9); ", " LEAVE(9, 9);"),
+            ("extern __shared__ float smem[];", None, " PROBE_START;"),
+            ("for (int step = 0; step < n_steps; ++step) {", "PROBE_START; ",
+             None),
+            ("kv_phase(kv, t + dt, nz, ny, h, g);", "STAMP(0); ",
+             " STAMP(1);"),
+            ("__syncthreads();", None, " LEAVE(0, 1);"),
+            ("__syncthreads();", "STAMP(3); ", " LEAVE(3, 3);"),
+            ("__syncthreads();", "STAMP(5); ", " LEAVE(5, 5);"),
+        ],
+        "labels": ("heun_1", "kv", "barrier_1", "heun_2_kahan", "barrier_2",
+                   "cn", "barrier_3", "pcr_setup", "pcr_setup_barrier",
+                   "pcr_rounds", "pcr_round_barriers"),
+    },
+    # cn_setup: B1's r' = rhs w, B1v1's a, b, c, r; cn_solve: B1's scan
+    # chain, B1v1's PCR rounds and x = r / b; cn_add: the Kahan add and y's
+    # publication
+    "the table and two barriers a step": {
+        "has": "cn_setup<M, kPcr>(",
+        "start": "extern __shared__ __align__(16) float smem[];",
+        "marks": [
+            ("extern __shared__ __align__(16) float smem[];", None,
+             " PROBE_START;"),
+            ("for (int step = 0; step < n_steps; ++step) {", "PROBE_START; ",
+             None),
+            ("__syncthreads();", "STAMP(0); ", " LEAVE(0, 0);"),
+            ("    // CN solve s = step + 1", "    STAMP(2);\n", None),
+            ("slot_wait(&slot_bar[s & 1], (s >> 1) & 1);", None, " STAMP(3);"),
+            ("b, c, lane, lanes, k0, jc, nz, ny);", None, " STAMP(4);"),
+            ("cn_solve<M, kPcr>(slot, v, a, b, c, lane, lanes, k0, jc, nz,"
+             " ny);", None, " STAMP(5);"),
+            ("__syncthreads();", "STAMP(6); ", " LEAVE(2, 6);"),
+        ],
+        "labels": ("heun_1", "barrier_1", "heun_2_kahan", "table_wait",
+                   "cn_setup", "cn_solve", "cn_add", "barrier_2"),
+    },
+}
 
 
 def _marked(text, start, ends, grid_anchor):
@@ -81,9 +170,46 @@ def _marked(text, start, ends, grid_anchor):
     return text.replace('#include "', MARK + '#include "', 1)
 
 
-def _probe_sources():
-    """the instrumented copies' text by kernel name"""
+def _edited(text, start, marks):
+    """text with each mark's code inserted before and after its anchor,
+    each anchor found after the previous one, from `start` on"""
+    pos = text.index(start)
+    for anchor, before, after in marks:
+        at = text.index(anchor, pos)
+        end = at + len(anchor)
+        text = (text[:at] + (before or "") + anchor + (after or "")
+                + text[end:])
+        pos = end + len(before or "") + len(after or "")
+    return text
+
+
+def b1_design(text):
+    """(name, spec) of the B1_DESIGNS entry that csrc/iage_year.cu's text
+    is"""
+    found = [(name, spec) for name, spec in B1_DESIGNS.items()
+             if spec["has"] in text]
+    if len(found) != 1:
+        raise RuntimeError("csrc/iage_year.cu matches no single design of "
+                           "B1_DESIGNS")
+    return found[0]
+
+
+def _b1_probe():
+    text = (imex_cuda.CSRC / "iage_year.cu").read_text()
+    _, spec = b1_design(text)
+    text = _edited(text, spec["start"], spec["marks"])
+    text = text.replace('#include "', STAMPS + '#include "', 1)
+    return text + READ % "iage_year"
+
+
+def _probe_sources(kernels):
+    """the instrumented copies' text by library name"""
     csrc = imex_cuda.CSRC
+    out = {}
+    if {"B1", "B1v1"} & set(kernels):
+        out["iage_year"] = _b1_probe()
+    if "B4" not in kernels and "B3" not in kernels:
+        return out
     b4 = _marked(
         (csrc / "transport3d_year.cu").read_text(),
         "for (int step = 0; step < a.n_steps; ++step) {",
@@ -99,16 +225,19 @@ def _probe_sources():
         "cg::grid_group grid = cg::this_grid();")
     b3 = b3.replace("    if (!last) grid.sync();",
                     "    MARK(4);\n    if (!last) grid.sync();\n    MARK(5);", 1)
-    return {"transport3d_year": b4 + READ % "transport3d_year",
-            "iage_block": b3 + READ % "iage_block"}
+    if "B4" in kernels:
+        out["transport3d_year"] = b4 + READ % "transport3d_year"
+    if "B3" in kernels:
+        out["iage_block"] = b3 + READ % "iage_block"
+    return out
 
 
-def build_probes():
+def build_probes(kernels=KERNELS):
     """compile the instrumented copies (one nvcc each, together); returns
-    {name: path of the .so}"""
+    {library name: path of the .so}"""
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in _probe_sources().items():
+    for name, text in _probe_sources(kernels).items():
         src = PROBE_DIR / f"{name}.cu"
         src.write_text(text)
         lib = PROBE_DIR / f"{name}.so"
@@ -124,8 +253,10 @@ def build_probes():
 
 
 def _use_probes(paths):
-    """point the wrappers of B3 and B4 at the probes' libraries"""
+    """point the wrappers of B1, B3 and B4 at the probes' libraries"""
     def load(name, signatures):
+        if name not in paths:
+            return plain_load(name, signatures)
         lib = ctypes.CDLL(str(paths[name]))
         signatures = {**signatures,
                       "error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -134,8 +265,10 @@ def _use_probes(paths):
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes, fn.restype = argtypes, restype
         return lib
+    plain_load = imex_cuda.load_library
     imex_block_cuda.load_library = load
     transport3d_cuda.load_library = load
+    imex_cuda.load_library = load
 
 
 def _phases(lib, name, labels, steps):
@@ -156,13 +289,58 @@ def _run(year, y0):
     return (time.perf_counter() - start) * 1e3
 
 
-def main():
-    device = resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    _use_probes(build_probes())
+def _b1_years(kernels, device):
+    """{(kernel, route): (year, y0)}: chip_smoke.py phase 2's F and JVP
+    years, and the F year from seeded uniform noise"""
+    if not kernels:
+        return {}
+    nz, ny = B1_SHAPE
+    depth, ypos = build_axes(nz, ny)
+    grid = physics.make_grid(depth, ypos, MODELINFO, device=device,
+                             dtype=torch.float32)
+    kernel = IageKernel(depth, ypos, MODELINFO, device=device,
+                        n_steps=B1_STEPS)
+    rng = np.random.default_rng(0)
+    aging = np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR)
+    inputs = {
+        "F": (aging, kernel.init_iterate()),
+        "JVP": (np.zeros((2, 1, 1)), rng.standard_normal((2, nz, ny))),
+        "F from noise": (aging, rng.uniform(0.0, 2.0, (2, nz, ny))),
+    }
+    builders = {"B1": imex_cuda.build_iage_year,
+                "B1v1": imex_cuda.build_iage_year_v1}
+    span = (0.0, physics.SEC_PER_YEAR)
+    return {
+        (name, route): (
+            builders[name](grid, kernel._vert_diag, source, span, B1_STEPS,
+                           device=device),
+            torch.as_tensor(y0, dtype=torch.float32, device=device))
+        for name in kernels for route, (source, y0) in inputs.items()
+    }
+
+
+def profile_b1(kernels, unmarked, device, card):
+    """B1's and B1v1's phases on each route, beside the unmarked ms"""
+    design, spec = b1_design((imex_cuda.CSRC / "iage_year.cu").read_text())
+    lib = imex_cuda._library("iage_year")
+    for (name, route), (year, y0) in _b1_years(kernels, device).items():
+        year(y0)
+        torch.cuda.synchronize()
+        _phases(lib, "iage_year", spec["labels"], 1)  # reset
+        ms = _run(year, y0)
+        phases = _phases(lib, "iage_year", spec["labels"], 2 * B1_STEPS)
+        total = sum(phases.values())
+        print(json.dumps({"kernel": name, "design": design, "route": route,
+                          "year": f"{B1_SHAPE[0]}x{B1_SHAPE[1]}, T = 2, "
+                                  f"{B1_STEPS} steps",
+                          "ms_unmarked": unmarked[name, route],
+                          "ms_marked": ms, "cycles_per_step": phases,
+                          "total_cycles_per_step": total,
+                          "sm_mhz_implied": total / (1e3 * ms / B1_STEPS),
+                          "card": card}), flush=True)
+
+
+def profile_b4(device, card):
     span = (0.0, transport3d_cuda.SEC_PER_YEAR)
     for label, shape, specs, n_steps in (("gx3", GX3, GX3_SPECS, 2000),
                                          ("gx1", (60, 384, 320),
@@ -185,6 +363,9 @@ def main():
                           "cycles_per_step": phases,
                           "total_cycles_per_step": sum(phases.values()),
                           "card": card}), flush=True)
+
+
+def profile_b3(device, card):
     for label, (nz, ny, modules, n_steps, k, shards) in (
             ("million-cell", (256, 2000, 1, 12615, 8, 1)),
             ("spin-up (1, 1)", (24, 48, 4, 2920, 8, 1)),
@@ -211,6 +392,29 @@ def main():
                           "cycles_per_step": phases,
                           "total_cycles_per_step": sum(phases.values()),
                           "card": card}), flush=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="SM cycles a step by phase of B1, B1v1, B3 and B4")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS,
+                        default=list(KERNELS))
+    kernels = parser.parse_args(argv).kernels
+    device = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    b1 = [name for name in ("B1", "B1v1") if name in kernels]
+    unmarked = {key: _run(year, y0)
+                for key, (year, y0) in _b1_years(b1, device).items()}
+    _use_probes(build_probes(kernels))
+    if b1:
+        profile_b1(b1, unmarked, device, card)
+    if "B4" in kernels:
+        profile_b4(device, card)
+    if "B3" in kernels:
+        profile_b3(device, card)
 
 
 if __name__ == "__main__":

@@ -9,51 +9,60 @@
 // (Strang splitting with the interior half-steps merged), Crank-Nicolson
 // vertical mixing and the implicit local diagonal in increment form with the
 // right-hand side in flux form, the seasonal mixing coefficient kv(t) in
-// closed form, advection + lateral diffusion as one fused face flux
-// G = ca*y_l + cb*y_r, a per-channel source, and Kahan-compensated float32
+// closed form, advection + lateral diffusion as the fused face flux
+// G = ca*y_l + cb*y_r (folded with vertical advection into a five-point
+// stencil a cell), a per-channel source, and Kahan-compensated float32
 // accumulation of every increment.  The device code it shares with the
 // phosphorus year (csrc/phosphorus_year.cu) lives in csrc/imex_common.cuh.
 //
-// Design.  Tracer channels never couple (the TPU kernel's lane-packed seams
-// carry exact zeros), so one thread block owns one channel: gridDim = T.
-// The block keeps the whole year in shared memory -- state y, Kahan buffer,
-// Heun stage f1, one scratch field, kv, and every constant field -- and
-// touches device memory only to load y0 and the constants and to store the
-// result, as the TPU kernel did with VMEM.  Each step is three phases
-// separated by __syncthreads():
-//   A  (one thread per cell / edge) f1 = tend(y), ys = y + dt f1, and
-//      kv(t + dt) on the (nz-1, ny) interior edges;
-//   B  (one thread per cell) f2 = tend(ys), Kahan add of dt/2 (f1 + f2);
-//   C  (one thread per ypos column) the CN solve.
+// What bounds it on this card: latency per step, not bytes or flops.  At
+// T = 2 the launch occupies 2 of 132 SMs for 8760 dependent steps.  The
+// first design spent 15-22k of a step's 25-31k SM cycles in the CN solve,
+// a Thomas chain on 50 of 512 threads with two IEEE divisions a level (whose
+// slow path zero numerators take: the F route from the solver's initial
+// iterate was 30% slower than the JVP route), 3.3k in kv(t), which depends
+// on t alone, and 3k in each Heun stage, mostly shared-memory loads
+// (cli/profile_phases.py).  This design:
+//
+//   * The table (iage_table_kernel, launched once per year function and
+//     shared by IageKernel's F and JVP years): for each of the year's
+//     n_steps + 1 CN solves (the leading dt/2, the merged dt solves, the
+//     trailing dt/2), kv on the (nz-1, ny) interior edges and, for each
+//     channel, the Thomas factors of every cell, m = a / denom,
+//     w = 1 / denom and cp = c / denom.  None depends on the state.  One
+//     thread a (solve, column), spread over every SM.
+//   * The year kernel streams each solve's slice (kv, and B1's factors of
+//     its channel) into one of two shared-memory slots with cp.async.bulk a
+//     step ahead of its use, issued by a producer warp; an mbarrier a slot
+//     says when it has landed.
+//   * Lanes own cells: a group of G lanes (a power of two, G <= 32, so a
+//     group never straddles a warp) owns column j, lane l its M levels
+//     l M .. l M + M - 1, in registers: the state, its Kahan compensation,
+//     the stage-1 tendency, the implicit diagonal and the tendency as a
+//     five-point stencil.  Vertical neighbours come by shuffles; only the
+//     lateral ones through shared memory, where y and the stage state are
+//     published.
+//   * Two block barriers a step: after Heun stage 1 (stage 2 reads the
+//     stage state at j +- 1), and after the CN solve (the next stage 1 reads
+//     y at j +- 1).  Stage 2's Kahan add and the CN solve of column j stay
+//     in column j's lanes.
+//   * B1's CN solve: r' = rhs w, then the chain gp_k = r'_k - m_k gp_{k-1}
+//     and x_k = gp_k - cp_k x_{k+1} as two scans of affine maps: each lane
+//     composes its M levels, log2 G shuffle rounds give its carry, and it
+//     applies its maps (no division on the state's path; multiplying by
+//     the stored reciprocal moves a level by at most an ulp from dividing
+//     by denom).  The serial chain on one lane a column was 2.1x slower.
+//   * B1v1's CN solve (kPcr): divide-form PCR in registers, ceil(log2 nz)
+//     rounds whose partners at +-s are the lane's own registers or a
+//     neighbouring lane's (shuffles), no barrier inside the solve; then
+//     x = r / b and the Kahan add.  Its alpha and gamma depend only on the
+//     matrix and stay inside the step: that is PCR's cost, which B1v1
+//     exists to measure.
+//
 // The time index is an integer; t = t0 + i dt is recomputed, never summed.
-//
-// Tridiagonal solve: Thomas, one thread per ypos column.  The column thread
-// builds the CN coefficients and the flux-form right-hand side inline while
-// it sweeps down, stores the sweep factors in the two scratch fields (free
-// during phase C), and fuses the Kahan add into the back substitution, so
-// the whole CN phase needs no barrier inside it.  PCR over (nz, ny) threads
-// shortens the 2 nz dependent steps to log2(nz) rounds, but each round is a
-// block-wide barrier and needs four more double-buffered fields: that is
-// B1v1, below.
-//
-// What bounds it on this card: latency and synchronisation per step, not
-// bytes or flops.  At T = 2 the launch occupies 2 of 132 SMs, and each of
-// the 8760 steps is three barriers plus the 2 nz-long dependent Thomas chain
-// on ny threads.  Making it fast -- thread block clusters splitting the
-// columns, several channels per block, CUDA graphs around the solver's
-// launches -- is later work.
-//
-// B1v1 (kPcr) replaces phase C's Thomas chain by divide-form parallel
-// cyclic reduction over all nz x ny cells, one thread a cell: the CN
-// coefficients and right-hand side of every cell, then ceil(log2 nz) rounds
-// of one barrier each, the a, b, c and r fields double-buffered, then
-// x = r / b and the Kahan add.  It asks the card whether log2(nz) barrier
-// rounds on nz ny threads beat the 2 nz dependent Thomas steps on ny.
-//
-// Shared memory holds 5 nz ny + 2 (nz-1) ny + 2 nz (ny-1) + 2 ny + 4 nz - 2
-// floats (72,312 bytes at 40 x 50), and B1v1 8 nz ny more (136,312 bytes);
-// smem_floats is the one place that counts it, and the wrapper checks it
-// against the card's opt-in limit.
+// Shared memory, counted by smem_floats alone (the wrapper checks it
+// against the card's opt-in limit): two slots, and y and the stage state
+// (nz, ny).
 
 #include "imex_common.cuh"
 
@@ -61,169 +70,584 @@ namespace {
 
 using namespace imex;
 
-constexpr int kThreads = 512;
+// a block's threads at most: 40 x 50 takes 800 and the producer warp, and
+// __launch_bounds__ then allows 72 registers a thread
+constexpr int kThreads = 864;
+constexpr int kMaxLevels = 8;   // levels a lane owns at most (M)
+constexpr int kTableThreads = 128;
+// the table: bulk copies move multiples of 16 bytes from 16-byte aligned
+// addresses, so each part is padded to kAlign floats
+constexpr int kAlign = 4;
+constexpr int kFactors = 3;  // m, w, cp
+
+__host__ __device__ inline long align_floats(long n) {
+  return (n + kAlign - 1) / kAlign * kAlign;
+}
+
+__host__ __device__ inline long kv_floats(int nz, int ny) {
+  return align_floats((long)(nz - 1) * ny);
+}
+
+__host__ __device__ inline long factor_floats(int nz, int ny) {
+  return align_floats((long)kFactors * nz * ny);
+}
+
+// one solve's part of the table: kv, then each channel's m, w, cp
+__host__ __device__ inline long solve_floats(int t_dim, int nz, int ny) {
+  return kv_floats(nz, ny) + t_dim * factor_floats(nz, ny);
+}
+
+// a shared-memory slot: kv, and B1's factors of one channel
+template <bool kPcr>
+__host__ __device__ inline long slot_floats(int nz, int ny) {
+  return kv_floats(nz, ny) + (kPcr ? 0L : factor_floats(nz, ny));
+}
 
 template <bool kPcr>
 __host__ __device__ inline long smem_floats(int nz, int ny) {
-  // y, comp, f1, ys, diag (nz, ny); kv (nz-1, ny); the constant fields;
-  // with kPcr the PCR fields a, b, c, r twice (nz, ny)
-  return 5L * nz * ny + (long)(nz - 1) * ny + grid_floats(nz, ny) +
-         (kPcr ? 8L * nz * ny : 0L);
+  // two slots; y and the stage state ys, published for the lateral stencil
+  return 2 * slot_floats<kPcr>(nz, ny) + 2L * nz * ny;
 }
 
-// the CN increment of every column, Kahan-added into y; f1 and ys serve as
-// the Thomas sweep factors (free during phase C)
-__device__ inline void cn_phase(float* y, float* comp, float* cp, float* gp,
-                                const float* kv, const float* diag, float h,
-                                int nz, int ny, const Fields& g) {
-  for (int j = threadIdx.x; j < ny; j += blockDim.x)
-    cn_column<true>(y, comp, cp, gp, kv, diag, h, j, nz, ny, g);
+// lanes a column (G): the largest power of two <= 32 with the columns'
+// warps and one more (the slots' producer) within kThreads
+__host__ __device__ inline int column_lanes(int ny) {
+  int lanes = 32;
+  while (lanes > 1 && ((long)lanes * ny + 31) / 32 * 32 + 32 > kThreads)
+    lanes /= 2;
+  return lanes;
 }
 
-// the CN increment of every cell by divide-form PCR along depth, one thread
-// a cell, Kahan-added into y: pcr holds the a, b, c, r fields twice.  The
-// arithmetic is ops/imex.py::cn_vertical_increment's with ops/tridiag.py::
-// pcr_solve (rows past either end act as identity rows).
-__device__ inline void cn_phase_pcr(float* y, float* comp, float* pcr,
-                                    const float* kv, const float* diag,
-                                    float h, int nz, int ny, const Fields& g) {
+__host__ __device__ inline int block_threads(int ny) {
+  return (column_lanes(ny) * ny + 31) / 32 * 32 + 32;
+}
+
+// the time and the step h of CN solve s of a year of n_steps steps: the
+// leading dt/2 at t0, then t_i + dt after step i (t_i = t0 + i dt), dt/2
+// after the last
+__device__ inline float solve_time(int s, float t0, float dt) {
+  if (s == 0) return t0;
+  const float t = t0 + (float)(s - 1) * dt;
+  return t + dt;
+}
+
+__device__ inline float solve_h(int s, int n_steps, float dt) {
+  return (s == 0 || s == n_steps) ? 0.5f * dt : dt;
+}
+
+// one thread a (solve, column): kv of the column's interior edges, then the
+// Thomas factors of each channel (the CN matrix (I - h/2 M) with
+// M = Lz + diag, as csrc/imex_common.cuh's cn_column builds it)
+__global__ void __launch_bounds__(kTableThreads)
+    iage_table_kernel(const float* __restrict__ fields,
+                      float* __restrict__ table, int t_dim, int nz, int ny,
+                      int n_steps, float t0, float dt) {
+  const long col = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= (long)(n_steps + 1) * ny) return;
+  const int s = (int)(col / ny);
+  const int j = (int)(col - (long)s * ny);
+  const Header hd = load_header(fields);
+  const float* grid_g = fields + kHeader;
+  const Fields g = grid_fields(grid_g, nz, ny);
+  const float* diag = grid_g + grid_floats(nz, ny) + t_dim;
+  const float half = 0.5f * solve_h(s, n_steps, dt);
+  const float frac = piecewise_frac(solve_time(s, t0, dt), hd);
+
+  float* kv = table + (long)s * solve_floats(t_dim, nz, ny);
+  for (int k = 0; k < nz - 1; ++k)
+    kv[k * ny + j] = kv_edge(k, j, ny, frac, hd, g);
   const int n = nz * ny;
-  const float half = 0.5f * h;
-  // buffer p holds a, b, c, r at pcr + 4 n p + {0, n, 2 n, 3 n}
-  float* const a0 = pcr;
-  float* const b0 = a0 + n;
-  float* const c0 = b0 + n;
-  float* const r0 = c0 + n;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int k = idx / ny;
-    const float dzr = g.dz_r[k];
-    const float yk = y[idx];
-    float kv_up = 0.0f, kv_lo = 0.0f, flux_dn = 0.0f, flux_up = 0.0f;
-    if (k < nz - 1) {
-      kv_up = kv[idx];
-      flux_dn = kv_up * (y[idx + ny] - yk);
+  for (int c = 0; c < t_dim; ++c) {
+    float* m = kv + kv_floats(nz, ny) + (long)c * factor_floats(nz, ny);
+    const float* d = diag + (long)c * n;
+    float cp_prev = 0.0f, kv_lo = 0.0f;
+    for (int k = 0; k < nz; ++k) {
+      const int i = k * ny + j;
+      const float dzr = g.dz_r[k];
+      const float kv_up = k < nz - 1 ? kv[i] : 0.0f;
+      const float du = kv_up * dzr;
+      const float dl = kv_lo * dzr;
+      const float dmain = -(du + dl) + d[i];
+      const float a = -half * dl;
+      const float b = 1.0f - half * dmain;
+      const float cc = -half * du;
+      const float denom = b - a * cp_prev;
+      cp_prev = cc / denom;
+      m[i] = a / denom;
+      m[n + i] = 1.0f / denom;
+      m[2 * n + i] = cp_prev;
+      kv_lo = kv_up;
     }
-    if (k > 0) {
-      kv_lo = kv[idx - ny];
-      flux_up = kv_lo * (yk - y[idx - ny]);
-    }
-    const float du = kv_up * dzr;
-    const float dl = kv_lo * dzr;
-    const float d = diag[idx];
-    const float dmain = -(du + dl) + d;
-    a0[idx] = -half * dl;
-    b0[idx] = 1.0f - half * dmain;
-    c0[idx] = -half * du;
-    r0[idx] = h * (dzr * (flux_dn - flux_up) + d * yk);
   }
-  __syncthreads();
-  int p = 0;
-  for (int s = 1; s < nz; s *= 2) {
-    const float* in = pcr + 4L * n * p;
-    float* out = pcr + 4L * n * (p ^ 1);
-    for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      const int k = idx / ny;
-      float a_m = 0.0f, b_m = 1.0f, c_m = 0.0f, r_m = 0.0f;
-      float a_p = 0.0f, b_p = 1.0f, c_p = 0.0f, r_p = 0.0f;
-      if (k >= s) {
-        const int im = idx - s * ny;
-        a_m = in[im];
-        b_m = in[n + im];
-        c_m = in[2 * n + im];
-        r_m = in[3 * n + im];
-      }
-      if (k + s < nz) {
-        const int ip = idx + s * ny;
-        a_p = in[ip];
-        b_p = in[n + ip];
-        c_p = in[2 * n + ip];
-        r_p = in[3 * n + ip];
-      }
-      const float alpha = -in[idx] / b_m;
-      const float gamma = -in[2 * n + idx] / b_p;
-      out[idx] = alpha * a_m;
-      out[2 * n + idx] = gamma * c_p;
-      out[n + idx] = in[n + idx] + alpha * c_m + gamma * a_p;
-      out[3 * n + idx] = in[3 * n + idx] + alpha * r_m + gamma * r_p;
-    }
-    __syncthreads();
-    p ^= 1;
-  }
-  const float* fin = pcr + 4L * n * p;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
-    kahan_add(y, comp, idx, fin[3 * n + idx] / fin[n + idx]);
 }
 
+// -- the slots: cp.async.bulk and an mbarrier a slot ------------------------
+
+__device__ inline unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void slot_bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// one thread: the copies of `bytes` in all into a slot, completing `bar`
+__device__ inline void slot_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void slot_copy(float* dst, const float* src, unsigned bytes,
+                                 unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ inline void slot_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// -- a column's lanes ---------------------------------------------------
+//
+// Lane l of a group owns levels l M .. l M + M - 1 of its column, their
+// values in registers; levels past nz hold 0.
+
+// v at the levels above (k - 1) and below (k + 1) each of the lane's own:
+// its own registers, and one shuffle from each neighbouring lane (lanes at
+// the column's ends get their own values, which the callers mask)
+template <int M>
+__device__ __forceinline__ void column_neighbours(const float (&v)[M],
+                                                  float (&above)[M],
+                                                  float (&below)[M],
+                                                  int lanes) {
+  const float up = __shfl_up_sync(~0u, v[M - 1], 1, lanes);
+  const float down = __shfl_down_sync(~0u, v[0], 1, lanes);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    above[m] = m > 0 ? v[m - 1] : up;
+    below[m] = m < M - 1 ? v[m + 1] : down;
+  }
+}
+
+// the fused transport tendency of csrc/imex_common.cuh's transport_tend as a
+// five-point stencil: f = cw v(j-1) + cc v + ce v(j+1) + cn v(k-1) +
+// cs v(k+1) + src, the lateral neighbours from the published field v_sh
+struct Stencil {
+  float w, c, e, n, s;
+};
+
+template <int M>
+__device__ __forceinline__ void tendency(const float (&v)[M],
+                                         const float* v_sh,
+                                         const Stencil (&st)[M], float src,
+                                         float (&f)[M], int k0, int jc,
+                                         int nz, int ny, int lanes) {
+  float above[M], below[M];
+  column_neighbours(v, above, below, lanes);
+  const int jw = max(jc - 1, 0), je = min(jc + 1, ny - 1);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int kc = min(k0 + m, nz - 1);
+    const float west = v_sh[kc * ny + jw];
+    const float east = v_sh[kc * ny + je];
+    f[m] = st[m].w * west + st[m].c * v[m] + st[m].e * east +
+           st[m].n * above[m] + st[m].s * below[m] + src;
+  }
+}
+
+__device__ __forceinline__ void kahan_reg(float& y, float& comp,
+                                          float delta) {
+  const float adj = delta + comp;
+  const float y_new = y + adj;
+  comp = adj - (y_new - y);
+  y = y_new;
+}
+
+// B1's chain over the group's lanes, in place on v: forward
+// gp_k = v_k - m_k gp_{k-1}, then back x_k = gp_k - cp_k x_{k+1}.  Each
+// lane composes its M levels' affine maps, a scan over the lanes by
+// shuffles (log2 G rounds) gives each lane its carry, and the lane applies
+// its maps from it.
+template <int M>
+__device__ __forceinline__ void thomas_scan(float (&v)[M], const float* fm,
+                                            const float* fcp, int lane,
+                                            int lanes, int k0, int jc,
+                                            int nz, int ny) {
+  float a[M];
+  float A = 1.0f, B = 0.0f;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int k = k0 + m;
+    a[m] = k < nz ? -fm[k * ny + jc] : 0.0f;
+    B = fmaf(a[m], B, v[m]);
+    A = a[m] * A;
+  }
+  for (int d = 1; d < lanes; d *= 2) {
+    const float Ap = __shfl_up_sync(~0u, A, d, lanes);
+    const float Bp = __shfl_up_sync(~0u, B, d, lanes);
+    if (lane >= d) {
+      B = fmaf(A, Bp, B);
+      A = A * Ap;
+    }
+  }
+  float x = __shfl_up_sync(~0u, B, 1, lanes);
+  if (lane == 0) x = 0.0f;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    x = fmaf(a[m], x, v[m]);
+    v[m] = x;
+  }
+  A = 1.0f;
+  B = 0.0f;
+#pragma unroll
+  for (int m = M - 1; m >= 0; --m) {
+    const int k = k0 + m;
+    a[m] = k < nz ? -fcp[k * ny + jc] : 0.0f;
+    B = fmaf(a[m], B, v[m]);
+    A = a[m] * A;
+  }
+  for (int d = 1; d < lanes; d *= 2) {
+    const float An = __shfl_down_sync(~0u, A, d, lanes);
+    const float Bn = __shfl_down_sync(~0u, B, d, lanes);
+    if (lane + d < lanes) {
+      B = fmaf(A, Bn, B);
+      A = A * An;
+    }
+  }
+  x = __shfl_down_sync(~0u, B, 1, lanes);
+  if (lane == lanes - 1) x = 0.0f;
+#pragma unroll
+  for (int m = M - 1; m >= 0; --m) {
+    x = fmaf(a[m], x, v[m]);
+    v[m] = x;
+  }
+}
+
+// -(num / den), 0 when num is 0: the same value up to the sign of a zero,
+// which no later sum sees
+__device__ __forceinline__ float neg_ratio(float num, float den) {
+  return num == 0.0f ? 0.0f : -num / den;
+}
+
+// a value of the row s levels away from level k0 + m: the lane's own
+// register or, s / M lanes (rounded) up or down, that lane's
+template <int M>
+__device__ __forceinline__ float row_at(const float (&v)[M], int m, int s,
+                                        int lanes) {
+  const int t = m + s;  // the partner's offset from the lane's first level
+  if (t >= 0 && t < M) return v[t];
+  if (t >= M) {
+    const int d = t / M;
+    return __shfl_down_sync(~0u, v[t - d * M], d, lanes);
+  }
+  const int d = (-t + M - 1) / M;
+  return __shfl_up_sync(~0u, v[t + d * M], d, lanes);
+}
+
+// B1v1's column solve: divide-form PCR over the group's rows (a, b, c, r
+// in registers), rows past either end acting as identity rows, then
+// x = r / b -- the arithmetic of ops/tridiag.py::pcr_solve
+constexpr int kMaxRounds = 8;  // ceil(log2 nz) <= 8: nz <= 256
+
+template <int M>
+__device__ __forceinline__ void pcr_rounds(float (&a)[M], float (&b)[M],
+                                           float (&c)[M], float (&r)[M],
+                                           int lanes, int k0, int nz) {
+#pragma unroll
+  for (int e = 0; e < kMaxRounds; ++e) {
+    const int s = 1 << e;
+    if (s >= nz) break;
+    float na[M], nb[M], nc[M], nr[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float am = row_at(a, m, -s, lanes), bm = row_at(b, m, -s, lanes);
+      float cm = row_at(c, m, -s, lanes), rm = row_at(r, m, -s, lanes);
+      float ap = row_at(a, m, s, lanes), bp = row_at(b, m, s, lanes);
+      float cq = row_at(c, m, s, lanes), rp = row_at(r, m, s, lanes);
+      if (k0 + m - s < 0) {
+        am = 0.0f;
+        bm = 1.0f;
+        cm = 0.0f;
+        rm = 0.0f;
+      }
+      if (k0 + m + s >= nz) {
+        ap = 0.0f;
+        bp = 1.0f;
+        cq = 0.0f;
+        rp = 0.0f;
+      }
+      const float alpha = neg_ratio(a[m], bm);
+      const float gamma = neg_ratio(c[m], bp);
+      na[m] = alpha * am;
+      nc[m] = gamma * cq;
+      nb[m] = b[m] + alpha * cm + gamma * ap;
+      nr[m] = r[m] + alpha * rm + gamma * rp;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      a[m] = na[m];
+      b[m] = nb[m];
+      c[m] = nc[m];
+      r[m] = nr[m];
+    }
+  }
+}
+
+// -- the year -----------------------------------------------------------------
+
+// solve s's slice of the table into slot s & 1 (one thread): kv, and B1's
+// factors of channel ch; the slot was last read before a block barrier
 template <bool kPcr>
-__global__ void __launch_bounds__(kThreads)
+__device__ inline void fetch(float* slots, long slot_len,
+                             unsigned long long* bars, const float* table,
+                             int s, int ch, int t_dim, int nz, int ny) {
+  float* slot = slots + (s & 1) * slot_len;
+  const float* part = table + (long)s * solve_floats(t_dim, nz, ny);
+  const unsigned kv_bytes = (unsigned)(kv_floats(nz, ny) * sizeof(float));
+  const unsigned f_bytes = (unsigned)(factor_floats(nz, ny) * sizeof(float));
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  slot_expect(&bars[s & 1], kv_bytes + (kPcr ? 0u : f_bytes));
+  slot_copy(slot, part, kv_bytes, &bars[s & 1]);
+  if (!kPcr)
+    slot_copy(slot + kv_floats(nz, ny),
+              part + kv_floats(nz, ny) + (long)ch * factor_floats(nz, ny),
+              f_bytes, &bars[s & 1]);
+}
+
+// the lane's right-hand side terms of a CN solve over h from the slot's kv:
+// kv on the edges below (up) and above (lo) each level, and
+// rhs = h (Lz + diag) y in flux form
+template <int M>
+__device__ __forceinline__ void cn_rhs(const float (&y)[M], const float* kv,
+                                       const float (&dg)[M],
+                                       const float (&dzr)[M], float h,
+                                       float (&kv_up)[M], float (&kv_lo)[M],
+                                       float (&rhs)[M], int lane, int lanes,
+                                       int k0, int jc, int nz, int ny) {
+  float above[M], below[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int k = k0 + m;
+    kv_up[m] = k < nz - 1 ? kv[k * ny + jc] : 0.0f;
+  }
+  column_neighbours(kv_up, kv_lo, below, lanes);
+  if (lane == 0) kv_lo[0] = 0.0f;
+  column_neighbours(y, above, below, lanes);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const float flux_dn = kv_up[m] * (below[m] - y[m]);
+    const float flux_up = kv_lo[m] * (y[m] - above[m]);
+    rhs[m] = h * (dzr[m] * (flux_dn - flux_up) + dg[m] * y[m]);
+  }
+}
+
+// the CN increment over h of the lane's cells from a landed slot, in three
+// parts: the right-hand side (B1: r' = rhs w; B1v1: the PCR rows a, b, c,
+// r), the solve (B1: the scan chain; B1v1: PCR and x = r / b), and the
+// Kahan add into y, published to y_sh
+template <int M, bool kPcr>
+__device__ __forceinline__ void cn_setup(const float* slot, float h,
+                                         const float (&y)[M],
+                                         const float (&dg)[M],
+                                         const float (&dzr)[M], float (&v)[M],
+                                         float (&a)[M], float (&b)[M],
+                                         float (&c)[M], int lane, int lanes,
+                                         int k0, int jc, int nz, int ny) {
+  float kv_up[M], kv_lo[M];
+  cn_rhs(y, slot, dg, dzr, h, kv_up, kv_lo, v, lane, lanes, k0, jc, nz, ny);
+  const float half = 0.5f * h;
+  const float* fw = slot + kv_floats(nz, ny) + nz * ny;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int k = k0 + m;
+    const bool cell = k < nz;
+    if constexpr (kPcr) {
+      const float du = kv_up[m] * dzr[m];
+      const float dl = kv_lo[m] * dzr[m];
+      const float dmain = -(du + dl) + dg[m];
+      a[m] = cell ? -half * dl : 0.0f;
+      b[m] = cell ? 1.0f - half * dmain : 1.0f;
+      c[m] = cell ? -half * du : 0.0f;
+      v[m] = cell ? v[m] : 0.0f;
+    } else {
+      v[m] = cell ? v[m] * fw[k * ny + jc] : 0.0f;
+    }
+  }
+}
+
+template <int M, bool kPcr>
+__device__ __forceinline__ void cn_solve(const float* slot, float (&v)[M],
+                                         float (&a)[M], float (&b)[M],
+                                         float (&c)[M], int lane, int lanes,
+                                         int k0, int jc, int nz, int ny) {
+  if constexpr (kPcr) {
+    pcr_rounds(a, b, c, v, lanes, k0, nz);
+#pragma unroll
+    for (int m = 0; m < M; ++m) v[m] = v[m] == 0.0f ? 0.0f : v[m] / b[m];
+  } else {
+    const float* fm = slot + kv_floats(nz, ny);
+    thomas_scan(v, fm, fm + 2 * nz * ny, lane, lanes, k0, jc, nz, ny);
+  }
+}
+
+template <int M>
+__device__ __forceinline__ void cn_add(const float (&v)[M], float (&y)[M],
+                                       float (&comp)[M], float* y_sh, int k0,
+                                       int j, bool active, int nz, int ny) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int k = k0 + m;
+    if (k < nz) kahan_reg(y[m], comp[m], v[m]);
+    if (active && k < nz) y_sh[k * ny + j] = y[m];
+  }
+}
+
+template <int M, bool kPcr>
+__global__ void __launch_bounds__(kThreads, 1)
     iage_year_kernel(const float* __restrict__ y0, float* __restrict__ out,
-                     const float* __restrict__ fields, int t_dim, int nz,
+                     const float* __restrict__ fields,
+                     const float* __restrict__ table, int t_dim, int nz,
                      int ny, int n_steps, float t0, float dt) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long slot_bar[2];
   const int n = nz * ny;
   const int ch = blockIdx.x;
+  const int lanes = column_lanes(ny);
+  // the warp after the columns' issues the slots' copies
+  const int producer = (lanes * ny + 31) / 32 * 32;
+  const bool columns = threadIdx.x < producer;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int j = threadIdx.x / lanes;  // this lane's column
+  const bool active = j < ny;
+  const int jc = active ? j : ny - 1;  // idle groups read column ny - 1
+  const int k0 = lane * M;             // the lane's first level
 
-  const Header h = load_header(fields);
+  const long slot_len = slot_floats<kPcr>(nz, ny);
+  float* const y_sh = smem + 2 * slot_len;  // y, published for j +- 1
+  float* const ys_sh = y_sh + n;            // the stage state, likewise
+
   const float* grid_g = fields + kHeader;
+  const Fields g = grid_fields(grid_g, nz, ny);
   const long n_grid = grid_floats(nz, ny);
   const float src = grid_g[n_grid + ch];
   const float* diag_g = grid_g + n_grid + t_dim + (long)ch * n;
 
-  float* y = smem;
-  float* comp = y + n;
-  float* f1 = comp + n;
-  float* ys = f1 + n;
-  float* diag = ys + n;
-  float* kv = diag + n;
-  float* grid_s = kv + (nz - 1) * ny;
-  float* pcr = grid_s + grid_floats(nz, ny);  // kPcr only
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    y[i] = y0[(long)ch * n + i];
-    comp[i] = 0.0f;
-    diag[i] = diag_g[i];
+  // the lane's cells: state, Kahan compensation, stage-1 tendency,
+  // implicit diagonal, 1 / dz and the tendency's stencil
+  float y[M], comp[M], f1[M], dg[M], dzr[M];
+  Stencil st[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int k = k0 + m;
+    const int kc = min(k, nz - 1);
+    const bool cell = k < nz;
+    const int f = kc * (ny - 1) + jc;  // face (kc, jc) | (kc, jc + 1)
+    const float dy_r = g.dy_r[jc];
+    const float dz_r = g.dz_r[kc];
+    const float wv_n = kc > 0 ? g.wv[(kc - 1) * ny + jc] : 0.0f;
+    const float wv_s = kc < nz - 1 ? g.wv[kc * ny + jc] : 0.0f;
+    const float ca_w = jc > 0 ? g.ca[f - 1] : 0.0f;
+    const float cb_w = jc > 0 ? g.cb[f - 1] : 0.0f;
+    const float ca_e = jc < ny - 1 ? g.ca[f] : 0.0f;
+    const float cb_e = jc < ny - 1 ? g.cb[f] : 0.0f;
+    st[m].w = cell ? dy_r * ca_w : 0.0f;
+    st[m].e = cell ? -dy_r * cb_e : 0.0f;
+    st[m].n = cell ? -0.5f * dz_r * wv_n : 0.0f;
+    st[m].s = cell ? 0.5f * dz_r * wv_s : 0.0f;
+    st[m].c = cell ? dy_r * (cb_w - ca_e) + 0.5f * dz_r * (wv_s - wv_n)
+                   : 0.0f;
+    y[m] = cell ? y0[(long)ch * n + kc * ny + jc] : 0.0f;
+    comp[m] = 0.0f;
+    f1[m] = 0.0f;
+    dg[m] = cell ? diag_g[kc * ny + jc] : 0.0f;
+    dzr[m] = dz_r;
+    if (columns && active && cell) y_sh[k * ny + j] = y[m];
   }
-  for (long i = threadIdx.x; i < n_grid; i += blockDim.x) grid_s[i] = grid_g[i];
-  __syncthreads();
-  const Fields g = grid_fields(grid_s, nz, ny);
 
-  // CN over h: Thomas (B1) or PCR (B1v1)
-  auto cn = [&](float h_cn) {
-    if constexpr (kPcr) {
-      cn_phase_pcr(y, comp, pcr, kv, diag, h_cn, nz, ny, g);
-    } else {
-      cn_phase(y, comp, f1, ys, kv, diag, h_cn, nz, ny, g);
-    }
-  };
-  kv_phase(kv, t0, nz, ny, h, g);
+  if (threadIdx.x == producer) {
+    slot_bar_init(&slot_bar[0]);
+    slot_bar_init(&slot_bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  cn(0.5f * dt);
-  __syncthreads();
+  if (threadIdx.x == producer) {
+    fetch<kPcr>(smem, slot_len, slot_bar, table, 0, ch, t_dim, nz, ny);
+    fetch<kPcr>(smem, slot_len, slot_bar, table, 1, ch, t_dim, nz, ny);
+  }
 
   const float half_dt = 0.5f * dt;
+  slot_wait(&slot_bar[0], 0);
+  if (columns) {
+    float v[M], a[M], b[M], c[M];
+    cn_setup<M, kPcr>(smem, half_dt, y, dg, dzr, v, a, b, c, lane, lanes, k0,
+                      jc, nz, ny);
+    cn_solve<M, kPcr>(smem, v, a, b, c, lane, lanes, k0, jc, nz, ny);
+    cn_add(v, y, comp, y_sh, k0, j, active, nz, ny);
+  }
+  __syncthreads();
   for (int step = 0; step < n_steps; ++step) {
-    const float t = t0 + (float)step * dt;
-    // A: Heun stage 1 and kv for the CN solve at t + dt
-    for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      int k = idx / ny;
-      float f = transport_tend(y, idx, k, idx - k * ny, nz, ny, src, g);
-      f1[idx] = f;
-      ys[idx] = y[idx] + dt * f;
-    }
-    kv_phase(kv, t + dt, nz, ny, h, g);
-    __syncthreads();
-    // B: Heun stage 2 and the compensated explicit update
-    for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      int k = idx / ny;
-      float f2 = transport_tend(ys, idx, k, idx - k * ny, nz, ny, src, g);
-      kahan_add(y, comp, idx, half_dt * (f1[idx] + f2));
+    // solve step + 2 into the slot that solve step left (read before the
+    // barrier that ended the last step)
+    if (threadIdx.x == producer && step + 2 <= n_steps)
+      fetch<kPcr>(smem, slot_len, slot_bar, table, step + 2, ch, t_dim, nz,
+                  ny);
+    // Heun stage 1: f1 = tend(y), the stage state ys = y + dt f1
+    if (columns) {
+      tendency(y, y_sh, st, src, f1, k0, jc, nz, ny, lanes);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int k = k0 + m;
+        if (active && k < nz) ys_sh[k * ny + j] = y[m] + dt * f1[m];
+      }
     }
     __syncthreads();
-    // C: CN over dt (merged interior halves), dt/2 after the last Heun
-    cn(step == n_steps - 1 ? half_dt : dt);
+    // Heun stage 2 and the compensated explicit update
+    if (columns) {
+      float ys[M], f2[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) ys[m] = y[m] + dt * f1[m];
+      tendency(ys, ys_sh, st, src, f2, k0, jc, nz, ny, lanes);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (k0 + m < nz) kahan_reg(y[m], comp[m], half_dt * (f1[m] + f2[m]));
+    }
+    // CN solve s = step + 1 over dt (merged interior halves), dt/2 after
+    // the last Heun
+    const int s = step + 1;
+    const float* slot = smem + (s & 1) * slot_len;
+    float v[M], a[M], b[M], c[M];
+    slot_wait(&slot_bar[s & 1], (s >> 1) & 1);
+    if (columns)
+      cn_setup<M, kPcr>(slot, s == n_steps ? half_dt : dt, y, dg, dzr, v, a,
+                        b, c, lane, lanes, k0, jc, nz, ny);
+    if (columns)
+      cn_solve<M, kPcr>(slot, v, a, b, c, lane, lanes, k0, jc, nz, ny);
+    if (columns) cn_add(v, y, comp, y_sh, k0, j, active, nz, ny);
     __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[(long)ch * n + i] = y[i];
+  if (columns && active) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int k = k0 + m;
+      if (k < nz) out[(long)ch * n + k * ny + j] = y[m];
+    }
+  }
 }
 
 }  // namespace
@@ -235,13 +659,32 @@ long iage_year_fields_len(int t_dim, int nz, int ny) {
   return kHeader + grid_floats(nz, ny) + t_dim + (long)t_dim * nz * ny;
 }
 
+// the table's layout: floats of one solve's kv part, of one channel's
+// factors, of one solve, and of the whole table (n_steps + 1 solves)
+long iage_year_kv_floats(int nz, int ny) { return kv_floats(nz, ny); }
+
+long iage_year_factor_floats(int nz, int ny) { return factor_floats(nz, ny); }
+
+long iage_year_table_floats(int t_dim, int nz, int ny, int n_steps) {
+  return (n_steps + 1L) * solve_floats(t_dim, nz, ny);
+}
+
 long iage_year_smem_bytes(int nz, int ny) {
   return smem_floats<false>(nz, ny) * (long)sizeof(float);
 }
 
-// B1v1's shared memory: B1's and the PCR fields
+// B1v1's shared memory: slots of kv alone, no chain scratch
 long iage_year_v1_smem_bytes(int nz, int ny) {
   return smem_floats<true>(nz, ny) * (long)sizeof(float);
+}
+
+// levels a lane owns at nz x ny, if a launch can take the grid; 0 if not
+int iage_year_levels(int nz, int ny) {
+  const int levels = (nz + column_lanes(ny) - 1) / column_lanes(ny);
+  return (ny >= 1 && ny <= kThreads - 32 && nz >= 2 && nz <= 1 << kMaxRounds &&
+          levels <= kMaxLevels)
+             ? levels
+             : 0;
 }
 
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of `device`, into *out
@@ -253,21 +696,58 @@ const char* iage_year_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// the table of a year's n_steps + 1 CN solves, from the packed constants
+int iage_year_table_launch(const float* fields, float* table, int t_dim,
+                           int nz, int ny, int n_steps, float t0, float dt,
+                           void* stream) {
+  const long cols = (n_steps + 1L) * ny;
+  const long blocks = (cols + kTableThreads - 1) / kTableThreads;
+  iage_table_kernel<<<(unsigned)blocks, kTableThreads, 0,
+                      (cudaStream_t)stream>>>(fields, table, t_dim, nz, ny,
+                                              n_steps, t0, dt);
+  return (int)cudaGetLastError();
+}
+
 }  // extern "C"
 
 namespace {
 
-template <bool kPcr>
-int launch(const float* y0, float* out, const float* fields, int t_dim,
-           int nz, int ny, int n_steps, float t0, float dt, void* stream) {
+template <int M, bool kPcr>
+int launch_levels(const float* y0, float* out, const float* fields,
+                  const float* table, int t_dim, int nz, int ny, int n_steps,
+                  float t0, float dt, void* stream) {
   const long smem = smem_floats<kPcr>(nz, ny) * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      iage_year_kernel<kPcr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      iage_year_kernel<M, kPcr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  iage_year_kernel<kPcr><<<t_dim, kThreads, smem, (cudaStream_t)stream>>>(
-      y0, out, fields, t_dim, nz, ny, n_steps, t0, dt);
+  iage_year_kernel<M, kPcr><<<t_dim, block_threads(ny), smem,
+                              (cudaStream_t)stream>>>(
+      y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt);
   return (int)cudaGetLastError();
+}
+
+template <bool kPcr>
+int launch(const float* y0, float* out, const float* fields,
+           const float* table, int t_dim, int nz, int ny, int n_steps,
+           float t0, float dt, void* stream) {
+  switch (iage_year_levels(nz, ny)) {
+#define IAGE_LEVELS(M)                                                       \
+  case M:                                                                    \
+    return launch_levels<M, kPcr>(y0, out, fields, table, t_dim, nz, ny,    \
+                                  n_steps, t0, dt, stream);
+    IAGE_LEVELS(1)
+    IAGE_LEVELS(2)
+    IAGE_LEVELS(3)
+    IAGE_LEVELS(4)
+    IAGE_LEVELS(5)
+    IAGE_LEVELS(6)
+    IAGE_LEVELS(7)
+    IAGE_LEVELS(8)
+#undef IAGE_LEVELS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -277,17 +757,17 @@ extern "C" {
 // launch on `stream` (a cudaStream_t) of the current device; returns the
 // cudaGetLastError() after the launch (0 on success)
 int iage_year_launch(const float* y0, float* out, const float* fields,
-                     int t_dim, int nz, int ny, int n_steps, float t0,
-                     float dt, void* stream) {
-  return launch<false>(y0, out, fields, t_dim, nz, ny, n_steps, t0, dt,
+                     const float* table, int t_dim, int nz, int ny,
+                     int n_steps, float t0, float dt, void* stream) {
+  return launch<false>(y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt,
                        stream);
 }
 
 // B1v1: the same year, its CN solves by PCR
 int iage_year_v1_launch(const float* y0, float* out, const float* fields,
-                        int t_dim, int nz, int ny, int n_steps, float t0,
-                        float dt, void* stream) {
-  return launch<true>(y0, out, fields, t_dim, nz, ny, n_steps, t0, dt,
+                        const float* table, int t_dim, int nz, int ny,
+                        int n_steps, float t0, float dt, void* stream) {
+  return launch<true>(y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt,
                       stream);
 }
 

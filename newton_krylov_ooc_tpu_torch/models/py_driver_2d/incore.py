@@ -22,7 +22,9 @@ removes its total-phosphorus null space.
 Year dispatch, by device and dtype, for F: a float32 state on a CUDA device
 runs the hand-written kernel (ops/imex_cuda.py::build_iage_year,
 ::build_phosphorus_year); every other combination -- the CPU, or float64 on
-either device -- runs the plain ops/imex.py::imex_year.
+either device -- runs the plain ops/imex.py::imex_year.  IageKernel's F and
+JVP years on the kernel share one table of the year's CN solves
+(ops/imex_cuda.py::build_iage_table).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from ...ops.compute import resolve_device
 from ...ops.imex_cuda import (
+    build_iage_table,
     build_iage_year,
     build_iage_year_plain,
     build_phosphorus_year,
@@ -173,11 +176,16 @@ class IageKernel(_InCoreKernel):
         source = np.full((2, 1, 1), 1.0 / self.year)
         source0 = np.zeros((2, 1, 1))
         if self.use_kernel:
+            # one table of the year's CN solves serves the F and JVP years
+            self.table = build_iage_table(grid, diag, span, n_steps,
+                                          device=self.device)
             self._year_fn = build_iage_year(
-                grid, diag, source, span, n_steps, device=self.device
+                grid, diag, source, span, n_steps, device=self.device,
+                table=self.table,
             )
             self._year0_fn = build_iage_year(
-                grid, diag, source0, span, n_steps, device=self.device
+                grid, diag, source0, span, n_steps, device=self.device,
+                table=self.table,
             )
         else:
             self._year_fn = build_iage_year_plain(grid, diag, source, span, n_steps)

@@ -11,6 +11,16 @@ year is its own exact tangent map, so IageKernel's JVP runs through it too.
 
 `build_iage_year_plain` returns the same year over ops/imex.py::imex_year.
 
+`build_iage_table` builds, with csrc/iage_year.cu's table kernel, what
+every CN solve of one such year needs apart from the state: kv on the
+interior edges and each channel's Thomas factors (m, w, cp), for each of
+the year's n_steps + 1 solves.  B1 and B1v1 stream it a step ahead; one
+table serves every year of the same grid, implicit diagonal, span and steps
+(IageKernel's F and JVP years).  `iage_table_plain` is its plain version,
+`cn_increment_factored` the CN increment from its factors (B1's chain) and
+`build_iage_year_factored` the year through that increment, in plain
+PyTorch.
+
 `build_iage_year_v1` is the port of imex_pallas.py::build_iage_year_pallas,
 the first layout of the same year: the same arguments and numerics, the
 whole year in one launch of B1v1, csrc/iage_year.cu's PCR variant, whose
@@ -94,6 +104,7 @@ _PHOS_TRACERS = 3  # po4, dop, pop
 # on a CUDA tensor); callers reset them to 0 to count a run's launches
 iage_year_launches = 0
 iage_year_v1_launches = 0
+iage_table_launches = 0
 phosphorus_year_launches = 0
 
 _libs = {}
@@ -101,6 +112,10 @@ _libs = {}
 # how many shape ints <name>_fields_len and <name>_launch take: t_dim, nz,
 # ny for iage; nz, ny for phosphorus
 _SHAPE_ARGS = {"iage_year": 3, "phosphorus_year": 2}
+# csrc/iage_year.cu's table: each part padded to _TABLE_ALIGN floats (its
+# kAlign); _TABLE_FACTORS (kFactors) fields a channel: m, w, cp
+_TABLE_ALIGN = 4
+_TABLE_FACTORS = 3
 
 
 def _nvcc():
@@ -176,20 +191,30 @@ def load_library(name, signatures):
 
 
 def _library(name):
-    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    c_int, c_ptr, c_long = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
     shape = [c_int] * _SHAPE_ARGS[name]
-    # y0, out, fields, shape, n_steps, t0, dt, stream
-    launch = ([c_ptr] * 3 + shape + [c_int] + [ctypes.c_float] * 2 + [c_ptr],
+    # y0, out, fields (and the iage table), shape, n_steps, t0, dt, stream
+    pointers = [c_ptr] * (4 if name == "iage_year" else 3)
+    launch = (pointers + shape + [c_int] + [ctypes.c_float] * 2 + [c_ptr],
               c_int)
     signatures = {
-        "fields_len": (shape, ctypes.c_long),
-        "smem_bytes": ([c_int] * 2, ctypes.c_long),
+        "fields_len": (shape, c_long),
+        "smem_bytes": ([c_int] * 2, c_long),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
         "launch": launch,
     }
-    if name == "iage_year":  # B1v1, the PCR variant, in the same library
-        signatures.update(v1_smem_bytes=([c_int] * 2, ctypes.c_long),
-                          v1_launch=launch)
+    if name == "iage_year":
+        # B1v1, the PCR variant, and the table kernel in the same library
+        signatures.update(
+            v1_smem_bytes=([c_int] * 2, c_long),
+            v1_launch=launch,
+            levels=([c_int] * 2, c_int),
+            kv_floats=([c_int] * 2, c_long),
+            factor_floats=([c_int] * 2, c_long),
+            table_floats=([c_int] * 4, c_long),
+            table_launch=([c_ptr] * 2 + [c_int] * 4 + [ctypes.c_float] * 2
+                          + [c_ptr], c_int),
+        )
     return load_library(name, signatures)
 
 
@@ -332,7 +357,265 @@ def _pack_fields(grid, diag, src):
     return _flat32([header, *grid_parts, src, diag])
 
 
-def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
+def _align(floats):
+    return -(-floats // _TABLE_ALIGN) * _TABLE_ALIGN
+
+
+def table_layout(t_dim, nz, ny, n_steps):
+    """csrc/iage_year.cu's table layout, in floats: each of the n_steps + 1
+    solves holds kv (nz-1, ny), then each channel's m, w, cp (nz, ny) in
+    turn, each part padded to _TABLE_ALIGN floats"""
+    kv = _align((nz - 1) * ny)
+    factors = _align(_TABLE_FACTORS * nz * ny)
+    solve = kv + t_dim * factors
+    floats = (n_steps + 1) * solve
+    return {"kv_floats": kv, "factor_floats": factors, "solve_floats": solve,
+            "solves": n_steps + 1, "floats": floats, "bytes": 4 * floats}
+
+
+def solve_times(t_span, n_steps):
+    """(times, h) of a year's n_steps + 1 CN solves, as float64 arrays: the
+    leading dt/2 at t0, the merged dt solve after each step i < n_steps - 1
+    at t0 + (i + 1) dt, the trailing dt/2 at the year's end"""
+    t0 = float(t_span[0])
+    dt = (float(t_span[1]) - t0) / n_steps
+    times = t0 + dt * np.arange(n_steps + 1)
+    h = np.full(n_steps + 1, dt)
+    h[0] = h[-1] = 0.5 * dt
+    return times, h
+
+
+def iage_table_plain(grid, vert_diag, times, h):
+    """(kv, m, w, cp) of CN solves at `times` over steps `h`, in the grid's
+    dtype and on its device: kv (S, nz-1, ny) from
+    physics.vert_mixing_coeff, and the Thomas factors (S, T, nz, ny) of each
+    channel's (I - h/2 (Lz + diag)): m = a / denom, w = 1 / denom,
+    cp = c / denom, with denom = b - a cp of the level above -- csrc/
+    iage_year.cu's iage_table_kernel in plain PyTorch"""
+    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+    dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
+    diag = _cpu64(vert_diag).reshape(-1, nz, ny).to(device=device,
+                                                    dtype=dtype)
+    kv = torch.stack([physics.vert_mixing_coeff(grid, float(t))
+                      for t in times])
+    half = 0.5 * torch.as_tensor(np.asarray(h), dtype=dtype,
+                                 device=device)[:, None, None, None]
+    zero = kv.new_zeros(kv.shape[0], 1, ny)
+    du = torch.cat([kv * grid.dz_r[:-1, None], zero], dim=1)[:, None]
+    dl = torch.cat([zero, kv * grid.dz_r[1:, None]], dim=1)[:, None]
+    dmain = -(du + dl) + diag
+    a = (-half * dl).expand_as(dmain)
+    b = 1.0 - half * dmain
+    c = (-half * du).expand_as(dmain)
+    m, w, cp = (torch.empty_like(dmain) for _ in range(3))
+    cp_prev = torch.zeros_like(dmain[..., 0, :])
+    for k in range(nz):
+        denom = b[..., k, :] - a[..., k, :] * cp_prev
+        cp_prev = c[..., k, :] / denom
+        m[..., k, :] = a[..., k, :] / denom
+        w[..., k, :] = 1.0 / denom
+        cp[..., k, :] = cp_prev
+    return kv, m, w, cp
+
+
+def pack_table(kv, m, w, cp):
+    """the float32 table of iage_table_plain's fields in csrc/iage_year.cu's
+    layout (table_layout), padding zero"""
+    n_solves, t_dim, nz, ny = m.shape
+    layout = table_layout(t_dim, nz, ny, n_solves - 1)
+    solves = torch.zeros((n_solves, layout["solve_floats"]),
+                         dtype=torch.float32, device=m.device)
+    solves[:, :(nz - 1) * ny] = kv.reshape(n_solves, -1)
+    factors = solves[:, layout["kv_floats"]:].view(
+        n_solves, t_dim, layout["factor_floats"])
+    factors[..., :_TABLE_FACTORS * nz * ny] = torch.stack(
+        [m, w, cp], dim=2).reshape(n_solves, t_dim, -1)
+    return solves.reshape(-1)
+
+
+def unpack_table(table, t_dim, nz, ny, n_steps):
+    """(kv (S, nz-1, ny), m, w, cp (S, T, nz, ny)) views of a table in
+    csrc/iage_year.cu's layout"""
+    layout = table_layout(t_dim, nz, ny, n_steps)
+    if table.numel() != layout["floats"]:
+        raise ValueError(f"a table of {table.numel()} floats; this layout "
+                         f"holds {layout['floats']}")
+    solves = table.view(layout["solves"], layout["solve_floats"])
+    kv = solves[:, :(nz - 1) * ny].reshape(-1, nz - 1, ny)
+    factors = solves[:, layout["kv_floats"]:].reshape(
+        -1, t_dim, layout["factor_floats"])[..., :_TABLE_FACTORS * nz * ny]
+    m, w, cp = factors.reshape(-1, t_dim, _TABLE_FACTORS, nz, ny).unbind(2)
+    return kv, m, w, cp
+
+
+class IageTable:
+    """the state-independent part of every CN solve of an iage year
+    (csrc/iage_year.cu's table), for the year functions that share it
+
+    tensor: the float32 table on its device (table_layout); key: the packed
+    float32 grid and implicit diagonal it was built from, which a year
+    checks against its own; shape (T, nz, ny), n_steps, t0, dt: the year's.
+    """
+
+    def __init__(self, tensor, key, shape, n_steps, t0, dt, events=None):
+        self.tensor = tensor
+        self.key = key
+        self.shape = shape
+        self.n_steps = n_steps
+        self.t0 = t0
+        self.dt = dt
+        self._events = events
+
+    @property
+    def nbytes(self):
+        return self.tensor.numel() * self.tensor.element_size()
+
+    def build_ms(self):
+        """ms of the table kernel's launch on the card (waits for it)"""
+        if self._events is None:
+            raise ValueError("a table built on the CPU has no launch to time")
+        start, end = self._events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def check(self, key, shape, n_steps, t0, dt, device):
+        """raise ValueError unless this table is the one a year of these
+        constants needs"""
+        same = (self.tensor.device == device and self.shape == shape
+                and self.n_steps == n_steps and self.t0 == t0
+                and self.dt == dt and torch.equal(self.key, key))
+        if not same:
+            raise ValueError(
+                "the table was built for another year (grid, implicit "
+                "diagonal, span, steps or device)")
+
+
+def _time_step(t_span, n_steps):
+    """(t0, dt) of a year of n_steps, refusing n_steps < 1"""
+    if int(n_steps) < 1:
+        raise ValueError(f"a year takes at least one step, got {n_steps}")
+    return float(t_span[0]), float((t_span[1] - t_span[0]) / n_steps)
+
+
+def _table_key(grid, diag):
+    header, grid_parts = _header_and_grid(grid)
+    return _flat32([header, *grid_parts, diag])
+
+
+def build_iage_table(grid, vert_diag, t_span, n_steps, *, device):
+    """the table of a year's n_steps + 1 CN solves: one launch of
+    csrc/iage_year.cu's table kernel on a CUDA `device` (one thread a solve
+    and column, over every SM); on the CPU, iage_table_plain's fields packed
+    in float32.  grid, vert_diag, t_span and n_steps as build_iage_year's;
+    the table serves every year of them, whatever its source."""
+    global iage_table_launches
+    device = resolve_device(device)
+    nz, ny = int(grid.depth_mid.shape[0]), int(grid.ypos_mid.shape[0])
+    diag = _cpu64(vert_diag).reshape(-1, nz, ny)
+    t0, dt = _time_step(t_span, n_steps)
+    t_dim = diag.shape[0]
+    shape, n_steps = (t_dim, nz, ny), int(n_steps)
+    key = _table_key(grid, diag)
+    layout = table_layout(t_dim, nz, ny, n_steps)
+    if device.type == "cpu":
+        times, h = solve_times(t_span, n_steps)
+        tensor = pack_table(*iage_table_plain(
+            _grid_to(grid, device, torch.float32), diag, times, h))
+        return IageTable(tensor, key, shape, n_steps, t0, dt)
+
+    lib = _library("iage_year")
+    for part in ("kv_floats", "factor_floats"):
+        if getattr(lib, f"iage_year_{part}")(nz, ny) != layout[part]:
+            raise RuntimeError("the table layout disagrees with "
+                               "csrc/iage_year.cu")
+    if lib.iage_year_table_floats(t_dim, nz, ny, n_steps) != layout["floats"]:
+        raise RuntimeError("the table layout disagrees with csrc/iage_year.cu")
+    fields = _pack_fields(grid, diag, torch.zeros(t_dim)).to(device)
+    tensor = torch.zeros(layout["floats"], dtype=torch.float32, device=device)
+    events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        events[0].record(stream)
+        err = lib.iage_year_table_launch(
+            fields.data_ptr(), tensor.data_ptr(), t_dim, nz, ny, n_steps, t0,
+            dt, stream.cuda_stream)
+        events[1].record(stream)
+    if err:
+        raise cuda_error(lib, "iage_year", err, "iage_table_kernel launch")
+    iage_table_launches += 1
+    return IageTable(tensor, key, shape, n_steps, t0, dt, events)
+
+
+def cn_increment_factored(kv, m, w, cp, diag, dz_r, v, h):
+    """the Crank-Nicolson increment of ops/imex.py::cn_vertical_increment
+    from a table's factors, as B1 computes it: r' = h (Lz + diag) v * w,
+    gp_k = r'_k - m_k gp_{k-1} down the column, x_k = gp_k - cp_k x_{k+1}
+    up it
+
+    kv: (nz-1, ny); m, w, cp, diag, v: (..., nz, ny), leading axes batched
+    """
+    flux = kv * (v[..., 1:, :] - v[..., :-1, :])
+    zrow = v.new_zeros(v.shape[:-2] + (1, v.shape[-1]))
+    rhs = h * (dz_r[:, None] * (torch.cat([flux, zrow], dim=-2)
+                                - torch.cat([zrow, flux], dim=-2)) + diag * v)
+    r = rhs * w
+    nz = v.shape[-2]
+    gp = torch.empty_like(r)
+    g = torch.zeros_like(r[..., 0, :])
+    for k in range(nz):
+        g = r[..., k, :] - m[..., k, :] * g
+        gp[..., k, :] = g
+    x = torch.empty_like(r)
+    xk = torch.zeros_like(g)
+    for k in range(nz - 1, -1, -1):
+        xk = gp[..., k, :] - cp[..., k, :] * xk
+        x[..., k, :] = xk
+    return x
+
+
+def build_iage_year_factored(grid, vert_diag, source, t_span, n_steps):
+    """year(y0: (T, nz, ny)) -> y(t_end) in the grid's dtype and on its
+    device: B1's step in plain PyTorch -- ops/imex.py::imex_year's scheme
+    with each CN solve from iage_table_plain's factors
+    (cn_increment_factored)"""
+    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+    dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
+    diag, src = _channels(vert_diag, source, nz, ny)
+    t_dim = diag.shape[0]
+    diag = diag.to(device=device, dtype=dtype)
+    src = src.to(device=device, dtype=dtype).reshape(t_dim, 1, 1)
+    times, h = solve_times(t_span, n_steps)
+    kv, m, w, cp = iage_table_plain(grid, diag, times, h)
+    dt = (float(t_span[1]) - float(t_span[0])) / n_steps
+
+    def tend(y):
+        return (physics.advection_tend(grid, y)
+                + physics.horiz_mix_tend(grid, y) + src)
+
+    def kahan(y, comp, delta):
+        adj = delta + comp
+        y_new = y + adj
+        return y_new, adj - (y_new - y)
+
+    def cn(s, y):
+        return cn_increment_factored(kv[s], m[s], w[s], cp[s], diag,
+                                     grid.dz_r, y, float(h[s]))
+
+    def year(y0):
+        _check_state(y0, (t_dim, nz, ny), dtype, device)
+        y, comp = kahan(y0, torch.zeros_like(y0), cn(0, y0))
+        for step in range(n_steps):
+            f1 = tend(y)
+            f2 = tend(y + dt * f1)
+            y, comp = kahan(y, comp, 0.5 * dt * (f1 + f2))
+            y, comp = kahan(y, comp, cn(step + 1, y))
+        return y
+
+    return year
+
+
+def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device,
+                    table=None):
     """year(y0: (T, nz, ny) float32) -> y(t_end), the whole year in one
     launch of the CUDA kernel on a CUDA `device`; on the CPU, the plain
     version in float32.
@@ -340,22 +623,29 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device):
     grid: physics.Grid2D (any dtype; the kernel's constants are float32);
     vert_diag: (T, nz, ny) linear local rates folded into the implicit
     solve; source: (T, 1, 1) constant explicit source (zeros for the
-    tangent year).  Raises ValueError when the shared-memory plan of one
-    channel exceeds what one block may use on the card.
+    tangent year); table: an IageTable of build_iage_table for the same
+    grid, vert_diag, t_span and n_steps, shared with other years (by
+    default the year builds its own).  Raises ValueError when the
+    shared-memory plan of one channel exceeds what one block may use on the
+    card, or a lane would own more levels than the kernel takes.
     """
-    return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "")
+    return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "",
+                      table)
 
 
-def build_iage_year_v1(grid, vert_diag, source, t_span, n_steps, *, device):
+def build_iage_year_v1(grid, vert_diag, source, t_span, n_steps, *, device,
+                       table=None):
     """year(y0: (T, nz, ny) float32) -> y(t_end), build_iage_year_pallas's
     year: the whole year in one launch of B1v1 (its CN solves by PCR over
-    the block's nz x ny threads) on a CUDA `device`; on the CPU, the plain
-    version in float32, whose column solves are divide-form PCR.  Arguments
-    and refusals as build_iage_year's."""
-    return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "v1_")
+    each column's lanes) on a CUDA `device`; on the CPU, the plain version
+    in float32, whose column solves are divide-form PCR.  Arguments and
+    refusals as build_iage_year's."""
+    return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "v1_",
+                      table)
 
 
-def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant):
+def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant,
+               table):
     """the iage year on B1 (variant "") or B1v1 (variant "v1_")"""
     device = resolve_device(device)
     if device.type == "cpu":
@@ -366,17 +656,25 @@ def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant):
 
     nz, ny = int(grid.depth_mid.shape[0]), int(grid.ypos_mid.shape[0])
     diag, src = _channels(vert_diag, source, nz, ny)
+    t0, dt = _time_step(t_span, n_steps)
     t_dim = diag.shape[0]
+    shape, n_steps = (t_dim, nz, ny), int(n_steps)
     fields = _pack_fields(grid, diag, src).to(device)
     lib = _library("iage_year")
     if lib.iage_year_fields_len(t_dim, nz, ny) != fields.numel():
         raise RuntimeError("packed constants disagree with csrc/iage_year.cu")
+    if not lib.iage_year_levels(nz, ny):
+        raise ValueError(
+            f"the iage_year kernel takes columns of 2 to 256 levels, each on "
+            f"at most 32 lanes of one block and 8 levels a lane: {nz}x{ny} "
+            "does not fit")
     _check_smem(lib, "iage_year", nz, ny, device, "one channel's year",
                 variant)
+    if table is None:
+        table = build_iage_table(grid, diag, t_span, n_steps, device=device)
+    else:
+        table.check(_table_key(grid, diag), shape, n_steps, t0, dt, device)
     launch = getattr(lib, f"iage_year_{variant}launch")
-    t0 = float(t_span[0])
-    dt = float((t_span[1] - t_span[0]) / n_steps)
-    shape = (t_dim, nz, ny)
 
     def year(y0):
         global iage_year_launches, iage_year_v1_launches
@@ -386,7 +684,8 @@ def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = launch(
                 y0.data_ptr(), out.data_ptr(), fields.data_ptr(),
-                t_dim, nz, ny, int(n_steps), t0, dt, stream,
+                table.tensor.data_ptr(), t_dim, nz, ny, n_steps, t0, dt,
+                stream,
             )
         if err:
             raise cuda_error(lib, "iage_year", err,

@@ -21,6 +21,7 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     SURF_SLOW_FACTOR,
     surf_restore_rate,
 )
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import IageKernel
 from newton_krylov_ooc_tpu_torch.ops import (
     imex_block_cuda,
     imex_cuda,
@@ -74,12 +75,21 @@ def _setup(nz, ny, device):
     return grid, diag
 
 
-@pytest.mark.parametrize("nz, ny, n_steps", [(8, 6, 24), (40, 50, 8760)])
+# the B1 / B1v1 runs (nz, ny, n_steps, fraction of the year): the JAX tests'
+# grid, phase 2's year, and a grid whose columns and levels divide into no
+# lane group (53 columns of 16 lanes, 37 levels: 3 a lane, the last
+# partial) over the first tenth of the year at phase 2's hourly step (at
+# 200 steps a year the float32 PCR of the plain year is 1e-3 from float64)
+IAGE_SHAPES = [(8, 6, 24, 1.0), (40, 50, 8760, 1.0), (37, 53, 876, 0.1)]
+
+
+@pytest.mark.parametrize("nz, ny, n_steps, years", IAGE_SHAPES)
 @pytest.mark.parametrize("aging", [True, False])
-def test_year_kernel_matches_plain(cuda_device, nz, ny, n_steps, aging):
+def test_year_kernel_matches_plain(cuda_device, nz, ny, n_steps, years,
+                                   aging):
     grid, diag = _setup(nz, ny, cuda_device)
     source = np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR if aging else 0.0)
-    span = (0.0, physics.SEC_PER_YEAR)
+    span = (0.0, years * physics.SEC_PER_YEAR)
     rng = np.random.default_rng(7)
     y0 = torch.as_tensor(rng.uniform(0.0, 2.0, (2, nz, ny)), dtype=torch.float32,
                          device=cuda_device)
@@ -98,16 +108,93 @@ def test_year_kernel_matches_plain(cuda_device, nz, ny, n_steps, aging):
 
 def test_year_kernel_rejects_what_it_cannot_take(cuda_device):
     grid, diag = _setup(8, 6, cuda_device)
+    span = (0.0, physics.SEC_PER_YEAR)
     year = imex_cuda.build_iage_year(grid, diag, np.zeros((2, 1, 1)),
-                                     (0.0, physics.SEC_PER_YEAR), 24,
-                                     device=cuda_device)
+                                     span, 24, device=cuda_device)
     y0 = torch.ones((2, 8, 6), dtype=torch.float32, device=cuda_device)
     before = imex_cuda.iage_year_launches
+    tables = imex_cuda.iage_table_launches
     for bad in (y0.double(), y0.cpu(), y0[:1], y0.transpose(1, 2).contiguous()
                 .transpose(1, 2)):
         with pytest.raises(ValueError):
             year(bad)
+    # a table of another year, no steps, a column of too many levels
+    table = imex_cuda.build_iage_table(grid, diag, span, 24,
+                                       device=cuda_device)
+    tables += 1
+    with pytest.raises(ValueError, match="another year"):
+        imex_cuda.build_iage_year(grid, diag, np.zeros((2, 1, 1)), span, 48,
+                                  device=cuda_device, table=table)
+    with pytest.raises(ValueError, match="another year"):
+        imex_cuda.build_iage_year_v1(grid, 2.0 * diag, np.zeros((2, 1, 1)),
+                                     span, 24, device=cuda_device, table=table)
+    with pytest.raises(ValueError, match="at least one step"):
+        imex_cuda.build_iage_year(grid, diag, np.zeros((2, 1, 1)), span, 0,
+                                  device=cuda_device)
+    deep, deep_diag = _setup(300, 6, cuda_device)
+    with pytest.raises(ValueError, match="8 levels a lane"):
+        imex_cuda.build_iage_year(deep, deep_diag, np.zeros((2, 1, 1)), span,
+                                  24, device=cuda_device)
     assert imex_cuda.iage_year_launches == before
+    assert imex_cuda.iage_table_launches == tables
+
+
+@pytest.mark.parametrize("nz, ny, n_steps, years", IAGE_SHAPES)
+def test_table_kernel_matches_plain(cuda_device, nz, ny, n_steps, years):
+    """the table kernel against iage_table_plain in float64 on the card,
+    within 1e-4 of each field's largest value (float32 rounding of the
+    factor recursion: at 24 steps a year, h = 1.3e6 s, denom = b - a cp
+    cancels and the plain float32 table is itself 3.4e-5 from float64),
+    and its layout against the counts csrc/iage_year.cu exports"""
+    grid, diag = _setup(nz, ny, cuda_device)
+    span = (0.0, years * physics.SEC_PER_YEAR)
+    before = imex_cuda.iage_table_launches
+    table = imex_cuda.build_iage_table(grid, diag, span, n_steps,
+                                       device=cuda_device)
+    torch.cuda.synchronize()
+    assert imex_cuda.iage_table_launches == before + 1
+    assert table.build_ms() > 0.0
+    layout = imex_cuda.table_layout(2, nz, ny, n_steps)
+    lib = imex_cuda._library("iage_year")
+    assert lib.iage_year_kv_floats(nz, ny) == layout["kv_floats"]
+    assert lib.iage_year_factor_floats(nz, ny) == layout["factor_floats"]
+    assert (lib.iage_year_table_floats(2, nz, ny, n_steps)
+            == layout["floats"])
+    assert table.nbytes == layout["bytes"]
+    times, h = imex_cuda.solve_times(span, n_steps)
+    grid64 = physics.make_grid(*build_axes(nz, ny), MODELINFO,
+                               device=cuda_device, dtype=torch.float64)
+    plain = imex_cuda.iage_table_plain(grid64, diag, times, h)
+    ours = imex_cuda.unpack_table(table.tensor, 2, nz, ny, n_steps)
+    for name, a, b in zip(("kv", "m", "w", "cp"), ours, plain):
+        assert torch.isfinite(a).all(), name
+        assert float((a.double() - b).abs().max()) / float(b.abs().max()) \
+            < 1e-4, name
+
+
+def test_iage_kernel_builds_one_table(cuda_device):
+    """IageKernel's F and JVP years run on one table, built once"""
+    nz, ny, n_steps = 8, 6, 24
+    depth, ypos = build_axes(nz, ny)
+    before = imex_cuda.iage_table_launches
+    kernel = IageKernel(depth, ypos, MODELINFO, device=cuda_device,
+                        n_steps=n_steps)
+    assert imex_cuda.iage_table_launches == before + 1
+    x = kernel.init_iterate()
+    years = imex_cuda.iage_year_launches
+    fcn = kernel.comp_fcn(x)
+    jvp = kernel.jvp(x, fcn, torch.ones_like(x))
+    torch.cuda.synchronize()
+    assert imex_cuda.iage_year_launches == years + 2
+    assert imex_cuda.iage_table_launches == before + 1
+    grid, diag = _setup(nz, ny, cuda_device)
+    span = (0.0, physics.SEC_PER_YEAR)
+    for source, got, y0 in (
+            (np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR), fcn, x),
+            (np.zeros((2, 1, 1)), jvp, torch.ones_like(x))):
+        ref = imex_cuda.build_iage_year_plain(grid, diag, source, span,
+                                              n_steps)(y0) - y0
+        assert float((got - ref).abs().max()) / float(y0.abs().max()) < TOL
 
 
 def _phosphorus_year(nz, ny, n_steps, device):
@@ -940,13 +1027,13 @@ def test_blocked_3d_year_kernel_matches_plain_and_one_shard(cuda_device,
 
 # -- B1v1: the iage year with PCR column solves --------------------------------
 
-@pytest.mark.parametrize("nz, ny, n_steps", [(8, 6, 24), (40, 50, 8760)])
+@pytest.mark.parametrize("nz, ny, n_steps, years", IAGE_SHAPES)
 @pytest.mark.parametrize("aging", [True, False])
 def test_iage_year_v1_kernel_matches_plain_and_b1(cuda_device, nz, ny,
-                                                  n_steps, aging):
+                                                  n_steps, years, aging):
     grid, diag = _setup(nz, ny, cuda_device)
     source = np.full((2, 1, 1), 1.0 / physics.SEC_PER_YEAR if aging else 0.0)
-    span = (0.0, physics.SEC_PER_YEAR)
+    span = (0.0, years * physics.SEC_PER_YEAR)
     y0 = torch.as_tensor(np.random.default_rng(7).uniform(0.0, 2.0,
                                                           (2, nz, ny)),
                          dtype=torch.float32, device=cuda_device)
