@@ -33,14 +33,17 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     kernel (one table for the F and JVP years), and against a float64
     plain evaluation of F at the solution;
   4 phosphorus_year against its plain PyTorch version at 40 x 50 x 8760,
-    from the initial iterate and from a constant 0.5, timed, with the
-    kernel's one-year drift of total phosphorus: both held against the
-    plain f32 year (the initial iterate's also the f64 year) over the first
-    tenth, the initial iterate's tenth timed for its JSON entry;
+    from the initial iterate, from seeded uniform noise and from a constant
+    0.5, timed, with the kernel's one-year drift of total phosphorus: each
+    held against the plain f32 year (the initial iterate's also the f64
+    year) over the first tenth, overall and for each tracer, the initial
+    iterate's tenth timed for its JSON entry; the year's table (B1's table
+    kernel at one channel and a zero diagonal) with its bytes and build ms;
   5 the phosphorus Newton-Krylov solve (PhosphorusKernel +
     NewtonKrylovInCore, 365 steps a year, float32, F on the kernel and
-    JVPs by forward mode), checked for convergence, positivity, launches,
-    and against a float64 plain evaluation of F at the solution;
+    JVPs by forward mode), checked for convergence, positivity, launches
+    (one table for the solve's F years), and against a float64 plain
+    evaluation of F at the solution;
   6 transport3d_year against its plain PyTorch year at gx3 (the JAX
     bench's two-module family, T = 2), for a steady circulation (against the
     plain float32 and float64 years, timed), a 12-month seasonal one and the
@@ -63,7 +66,7 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     before the fused step first, and this run's beside them last; phases
     6, 7, 9, 10 and 12 those before B3's and B4's persistent launches;
     phases 2, 3 and 14 those before B1's and B1v1's table and two barriers
-    a step;
+    a step, phase 4 those of B2's before its own;
   9 iage_block in the JAX bench's million-cell blocked year (256 x 2000,
     one module of two tracers, 12,615 steps, blocks of 8 steps, a (1, 1)
     mesh): the full year timed; over its first tenth against the plain f32
@@ -294,11 +297,13 @@ ROUGH_TOL = 5e-5
 # tree's (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
 # this run's: phases 8, 11 and 13 before the fused step, phases 6, 7, 9, 10
 # and 12 before B3's and B4's persistent launches, phases 2, 3 and 14 before
-# B1's and B1v1's table (ranges over earlier runs where PERF.md gives them)
+# B1's and B1v1's table, phase 4 before B2's (ranges over earlier runs where
+# PERF.md gives them)
 EARLIER_MS = {
     2: {"F_year": 125.65, "JVP_year": 95.45, "F_tenth": 12.46},
     3: {"solve_seconds": 1.5055},
     14: {"F_year": 156.85, "JVP_year": 152.04, "F_tenth": 15.47},
+    4: {"init_iterate_year": 146.41, "init_iterate_tenth": 15.13},
     6: {"steady_year": 416.28},
     7: {"solve_seconds": "5.94-5.95"},
     8: {"upwind3_year": 1570.17, "upwind3_400_steps": 315.02,
@@ -319,7 +324,7 @@ EARLIER_MS = {
 }
 EARLIER_DESIGN = {8: "the fused step", 11: "the fused step",
                   13: "the fused step", 2: "the table", 3: "the table",
-                  14: "the table"}
+                  14: "the table", 4: "the table"}
 
 
 def phase(num, title, **numbers):
@@ -461,10 +466,17 @@ def transport3d_bound(coef, kv, t_dim, n_steps):
     return bound(n_bytes, n_ops)
 
 
+def tracer_errs(a, b):
+    """each tracer's largest difference, of that tracer's max|b|"""
+    return [rel_err(a[tr], b[tr], float(b[tr].abs().max()))
+            for tr in range(a.shape[0])]
+
+
 def phosphorus_kernel_phase(depth, ypos, device):
     """phase 4: phosphorus_year against its plain version at full size, the
     year timed, the comparisons over its first tenth; returns (max abs
     error, kernel ms, plain f32 ms) over the initial iterate's tenth"""
+    earlier_times(4)
     probe = PhosphorusKernel(depth, ypos, incore_spinup.MODELINFO,
                              device=device, n_steps=PHOS_STEPS)
     span = (0.0, physics.SEC_PER_YEAR)
@@ -477,16 +489,25 @@ def phosphorus_kernel_phase(depth, ypos, device):
                 span, N_STEPS)
         for dtype in (torch.float32, torch.float64)
     }
-    year_k = imex_cuda.build_phosphorus_year(*plain_args[torch.float32],
-                                             device=device)
+    args32 = plain_args[torch.float32]
+    tables = [imex_cuda.build_phosphorus_table(args32[0], span, N_STEPS,
+                                               device=device)
+              for _ in range(2)]
+    phase(4, "phosphorus table (B1's table kernel, one channel, zero "
+             "diagonal)", year_table_bytes=tables[-1].nbytes,
+          year_build_ms=tables[-1].build_ms())
+    year_k = imex_cuda.build_phosphorus_year(*args32, device=device,
+                                             table=tables[-1])
+    rng = np.random.default_rng(0)
     inputs = {
         "init_iterate": probe.init_iterate(),
+        "noise": torch.as_tensor(rng.uniform(0.0, 2.0, (3, NZ, NY)),
+                                 dtype=torch.float32, device=device),
         "const_0.5": torch.full((3, NZ, NY), 0.5, dtype=torch.float32,
                                 device=device),
     }
-    args32 = plain_args[torch.float32]
     short_k = imex_cuda.build_phosphorus_year(*tenth(args32), device=device)
-    worst_abs, tenth_ms = 0.0, {}
+    worst_abs, tenth_ms, year_ms = 0.0, {}, {}
     for label, y0 in inputs.items():
         y_k, ms = kernel_timing(year_k, y0)
         p0 = total_p(depth, ypos, y0)
@@ -502,6 +523,7 @@ def phosphorus_kernel_phase(depth, ypos, device):
             numbers = {
                 "rel_err_f64_tenth": rel_err(y_s, y_64,
                                              float(y_64.abs().max())),
+                "rel_err_f64_tenth_by_tracer": tracer_errs(y_s, y_64),
                 "plain_f64_ms_per_tenth": ms_64,
                 "p_drift_plain_f64_tenth":
                     abs(total_p(depth, ypos, y_64) - p0) / p0,
@@ -509,9 +531,10 @@ def phosphorus_kernel_phase(depth, ypos, device):
         scale = float(ref.abs().max())
         err_32 = rel_err(y_s, ref, scale)
         phase(4, f"phosphorus_year vs plain ({label})",
-              rel_err_f32_tenth=err_32, compared_steps=CHECK_STEPS,
-              **numbers, kernel_ms_per_year=ms, kernel_ms_tenth=ms_s,
-              plain_f32_ms_tenth=ms_32,
+              rel_err_f32_tenth=err_32,
+              rel_err_f32_tenth_by_tracer=tracer_errs(y_s, ref),
+              compared_steps=CHECK_STEPS, **numbers, kernel_ms_per_year=ms,
+              kernel_ms_tenth=ms_s, plain_f32_ms_tenth=ms_32,
               p_drift_kernel=abs(total_p(depth, ypos, y_k) - p0) / p0,
               max_abs_y=scale)
         if not (torch.isfinite(y_k).all() and err_32 <= F32_TOL
@@ -523,6 +546,9 @@ def phosphorus_kernel_phase(depth, ypos, device):
             )
         worst_abs = max(worst_abs, float((y_s - ref).abs().max()))
         tenth_ms[label] = (ms_s, ms_32)
+        year_ms[label] = ms
+    against_earlier(4, {"init_iterate_year": year_ms["init_iterate"],
+                        "init_iterate_tenth": tenth_ms["init_iterate"][0]})
     # the JSON line's times are the initial iterate's, over the tenth
     return (worst_abs, *tenth_ms["init_iterate"])
 
@@ -530,6 +556,7 @@ def phosphorus_kernel_phase(depth, ypos, device):
 def phosphorus_solve_phase(depth, ypos, device):
     """phase 5: the phosphorus spin-up as the JAX package drives it
     (PhosphorusKernel + NewtonKrylovInCore); returns the kernel's launches"""
+    reset_counts()
     kernel = PhosphorusKernel(depth, ypos, incore_spinup.MODELINFO,
                               device=device, dtype=torch.float32,
                               n_steps=PHOS_STEPS)
@@ -543,13 +570,13 @@ def phosphorus_solve_phase(depth, ypos, device):
                                 newton_max_iter=8)
     x0 = kernel.init_iterate()
 
-    reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     x, fcn, info = solver.solve(x0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = imex_cuda.phosphorus_year_launches
+    table_launches = imex_cuda.iage_table_launches
 
     rel = info["fcn_norm"] / info["x_norm"]
     p0 = total_p(depth, ypos, x0)
@@ -563,7 +590,9 @@ def phosphorus_solve_phase(depth, ypos, device):
           seconds=seconds, f_seconds=spent_f[0], f_evals=spent_f[1],
           jvp_seconds=spent_jvp[0], jvp_evals=spent_jvp[1],
           max_rel_resid=float(rel.max()), f64_plain_rel_resid=rel64,
-          kernel_launches=launches, min_po4=float(x[0].min()),
+          kernel_launches=launches, table_launches=table_launches,
+          table_build_ms=kernel.table.build_ms(),
+          table_bytes=kernel.table.nbytes, min_po4=float(x[0].min()),
           p_drift=abs(total_p(depth, ypos, x) - p0) / p0)
     if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
         raise SystemExit("chip_smoke: non-finite values in the phosphorus "
@@ -582,6 +611,9 @@ def phosphorus_solve_phase(depth, ypos, device):
             f"chip_smoke: {launches} phosphorus_year launches for "
             f"{spent_f[1]} F evaluations"
         )
+    if table_launches != 1:
+        raise SystemExit(f"chip_smoke: {table_launches} table launches in the "
+                         "phosphorus solve, expected one for its F years")
     if not rel64 < PHOS_SOLVE_TOL:
         raise SystemExit(f"chip_smoke: f64 phosphorus residual at the "
                          f"solution {rel64:.3e}")
@@ -1711,7 +1743,8 @@ def main(argv=None):
     for name, (lib_path, build_s) in built.items():
         print(f"  {name}: {lib_path.name} nvcc {build_s:.2f} s", flush=True)
         for line in lib_path.with_suffix(".log").read_text().splitlines():
-            if any(key in line for key in ("registers", "spill", "smem")):
+            if any(key in line for key in ("Function properties",
+                                           "registers", "spill", "smem")):
                 print(f"    ptxas: {line.strip()}", flush=True)
 
     depth, ypos = incore_spinup.build_axes(NZ, NY)

@@ -51,9 +51,9 @@ import numpy as np
 import torch
 
 from ..models.irf_offline import synthetic
-from ..models.py_driver_2d import physics
+from ..models.py_driver_2d import phosphorus, physics
 from ..models.py_driver_2d.iage import SURF_SLOW_FACTOR, surf_restore_rate
-from ..models.py_driver_2d.incore import IageKernel
+from ..models.py_driver_2d.incore import IageKernel, PhosphorusKernel
 from ..ops import imex_block_cuda, imex_cuda, transport3d_cuda
 from ..ops.compute import resolve_device
 from ..parallel.mesh import make_mesh
@@ -80,7 +80,7 @@ extern "C" int %s_phases(unsigned long long* out) {
 B4_PHASES = ("stage_y", "f1", "sync_1", "stage_ys", "f2_heun", "cn",
              "publish", "sync_2")
 B3_PHASES = ("halo", "stage_1", "stage_2", "cn", "publish", "sync")
-KERNELS = ("B1", "B1v1", "B3", "B4")
+KERNELS = ("B1", "B1v1", "B2", "B3", "B4")
 B1_SHAPE, B1_STEPS = (40, 50), 8760
 
 # B1's and B1v1's marks: STAMP(i) where a warp ends phase i; LEAVE(i, j)
@@ -155,6 +155,72 @@ B1_DESIGNS = {
     },
 }
 
+# each design of csrc/phosphorus_year.cu, as B1_DESIGNS
+B2_DESIGNS = {
+    "three barriers a step": {
+        "has": "cn_phase(y, comp, f1, ys, kv, step == n_steps - 1 ? half_dt",
+        "start": "extern __shared__ float smem[];",
+        "marks": [
+            ("extern __shared__ float smem[];", None, " PROBE_START;"),
+            ("for (int step = 0; step < n_steps; ++step) {", "PROBE_START; ",
+             None),
+            ("kv_phase(kv, t + dt, nz, ny, h, g);", "STAMP(0); ",
+             " STAMP(1);"),
+            ("__syncthreads();", None, " LEAVE(0, 1);"),
+            ("__syncthreads();", "STAMP(3); ", " LEAVE(3, 3);"),
+            ("__syncthreads();", "STAMP(5); ", " LEAVE(5, 5);"),
+        ],
+        "labels": ("heun_1", "kv", "barrier_1", "heun_2_kahan", "barrier_2",
+                   "cn", "barrier_3"),
+    },
+    # B1's skeleton on a cluster of blocks, each barrier split: the column
+    # terms of a Heun stage (heun_*_column) run between arriving and
+    # waiting, the lateral terms after; cn_rhs r' = rhs w of the three
+    # tracers, cn_chain the scans, cn_add the Kahan add and y's
+    # publication; block 0 marked
+    "the table and two split barriers a step": {
+        "has": "lateral_terms(ys_sh, st, f2, k0, jw, je, nz, ny);",
+        "start": "extern __shared__ __align__(16) float smem[];",
+        "marks": [
+            ("extern __shared__ __align__(16) float smem[];", None,
+             " PROBE_START;"),
+            ("for (int step = 0; step < n_steps; ++step) {", "PROBE_START; ",
+             None),
+            ("    cluster_arrive();", "    STAMP(0);\n", None),
+            ("    cluster_wait();", "    STAMP(1);\n", "\n    LEAVE(0, 1);"),
+            ("    // CN solve s = step + 1", "    STAMP(3);\n", None),
+            ("slot_wait(&slot_bar[s & 1], (s >> 1) & 1);", None, " STAMP(4);"),
+            ("jc, nz, ny);", None, " STAMP(5);"),
+            ("cn_chain(slot, v, lane, lanes, k0, jc, nz, ny);", None,
+             " STAMP(6);"),
+            ("    cluster_arrive();", "    STAMP(7);\n", None),
+            ("    cluster_wait();", "    STAMP(8);\n", "\n    LEAVE(3, 8);"),
+        ],
+        "labels": ("heun_1_lateral", "heun_2_column", "barrier_1",
+                   "heun_2_lateral_kahan", "table_wait", "cn_rhs", "cn_chain",
+                   "cn_add", "heun_1_column", "barrier_2"),
+    },
+}
+
+
+# the tree's B2 with a line or two changed, to time what it was chosen over
+# (--b2-variants): the same step on a cluster of two blocks of at most 448
+# threads (128 registers a thread) and on one block of 864 (72); the uptake
+# in the plain year's order, mu L po4 / (po4 + K), whose zero and subnormal
+# numerators in the deep levels take the division's slow path
+B2_VARIANTS = {
+    "two blocks": (("constexpr int kCtas = 4;", "constexpr int kCtas = 2;"),
+                   ("constexpr int kThreads = 256;",
+                    "constexpr int kThreads = 448;")),
+    "one block": (("constexpr int kCtas = 4;", "constexpr int kCtas = 1;"),
+                  ("constexpr int kThreads = 256;",
+                   "constexpr int kThreads = 864;")),
+    "uptake in the plain order": (
+        ("    const float num = k < nz ? po4 : 1.0f;\n"
+         "    const float uptake = uc[m] * (num / (num + p.halfsat));",
+         "    const float uptake = uc[m] * po4 / (po4 + p.halfsat);"),),
+}
+
 
 def _marked(text, start, ends, grid_anchor):
     """text with MARK(i) after each of `ends`, found in order after
@@ -183,23 +249,24 @@ def _edited(text, start, marks):
     return text
 
 
-def b1_design(text):
-    """(name, spec) of the B1_DESIGNS entry that csrc/iage_year.cu's text
+def source_design(source, designs):
+    """(name, spec) of the entry of `designs` that csrc/<source>'s text
     is"""
-    found = [(name, spec) for name, spec in B1_DESIGNS.items()
+    text = (imex_cuda.CSRC / source).read_text()
+    found = [(name, spec) for name, spec in designs.items()
              if spec["has"] in text]
     if len(found) != 1:
-        raise RuntimeError("csrc/iage_year.cu matches no single design of "
-                           "B1_DESIGNS")
+        raise RuntimeError(f"csrc/{source} matches no single design")
     return found[0]
 
 
-def _b1_probe():
-    text = (imex_cuda.CSRC / "iage_year.cu").read_text()
-    _, spec = b1_design(text)
+def _stamped_probe(library, designs):
+    """csrc/<library>.cu with its design's stamps, and the counters' reader"""
+    text = (imex_cuda.CSRC / f"{library}.cu").read_text()
+    _, spec = source_design(f"{library}.cu", designs)
     text = _edited(text, spec["start"], spec["marks"])
     text = text.replace('#include "', STAMPS + '#include "', 1)
-    return text + READ % "iage_year"
+    return text + READ % library
 
 
 def _probe_sources(kernels):
@@ -207,7 +274,9 @@ def _probe_sources(kernels):
     csrc = imex_cuda.CSRC
     out = {}
     if {"B1", "B1v1"} & set(kernels):
-        out["iage_year"] = _b1_probe()
+        out["iage_year"] = _stamped_probe("iage_year", B1_DESIGNS)
+    if "B2" in kernels:
+        out["phosphorus_year"] = _stamped_probe("phosphorus_year", B2_DESIGNS)
     if "B4" not in kernels and "B3" not in kernels:
         return out
     b4 = _marked(
@@ -232,28 +301,58 @@ def _probe_sources(kernels):
     return out
 
 
-def build_probes(kernels=KERNELS):
-    """compile the instrumented copies (one nvcc each, together); returns
-    {library name: path of the .so}"""
+def _compile(sources):
+    """compile {stem: text} into PROBE_DIR (one nvcc each, together),
+    printing each one's ptxas registers and spills; returns {stem: path of
+    the .so}"""
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in _probe_sources(kernels).items():
-        src = PROBE_DIR / f"{name}.cu"
+    for stem, text in sources.items():
+        src = PROBE_DIR / f"{stem}.cu"
         src.write_text(text)
-        lib = PROBE_DIR / f"{name}.so"
-        procs[name] = (lib, subprocess.Popen(
+        lib = PROBE_DIR / f"{stem}.so"
+        procs[stem] = (lib, subprocess.Popen(
             [imex_cuda._nvcc(), *imex_cuda.NVCC_FLAGS, "-I",
              str(imex_cuda.CSRC), "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for name, (lib, proc) in procs.items():
-        _, err = proc.communicate()
+    for stem, (lib, proc) in procs.items():
+        out, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the {name} probe:\n{err}")
-    return {name: lib for name, (lib, _) in procs.items()}
+            raise RuntimeError(f"nvcc failed on the {stem} probe:\n{err}")
+        ptxas = [line.strip() for line in (out + err).splitlines()
+                 if any(key in line for key in ("Function properties",
+                                                "registers", "spill"))]
+        print(json.dumps({"probe": stem, "ptxas": ptxas}), flush=True)
+    return {stem: lib for stem, (lib, _) in procs.items()}
+
+
+def build_probes(kernels=KERNELS):
+    """compile the instrumented copies; returns {library name: path of the
+    .so}"""
+    return _compile(_probe_sources(kernels))
+
+
+def build_b2_variants(variants):
+    """compile each of B2_VARIANTS named, unmarked; returns {variant: .so}"""
+    plain = (imex_cuda.CSRC / "phosphorus_year.cu").read_text()
+    reader = "__device__ unsigned long long g_phase[16];\n"
+    sources = {}
+    for num, name in enumerate(variants):
+        text = reader + plain + READ % "phosphorus_year"
+        for old, new in B2_VARIANTS[name]:
+            if old not in text:
+                raise RuntimeError(f"B2 variant {name!r}: {old!r} is not in "
+                                   "csrc/phosphorus_year.cu")
+            text = text.replace(old, new, 1)
+        sources[f"b2_variant{num}"] = text
+    paths = _compile(sources)
+    return {name: paths[f"b2_variant{num}"]
+            for num, name in enumerate(variants)}
 
 
 def _use_probes(paths):
-    """point the wrappers of B1, B3 and B4 at the probes' libraries"""
+    """point the wrappers of B1, B2, B3 and B4 at the libraries in `paths`
+    ({library name: .so}, read at each load)"""
     def load(name, signatures):
         if name not in paths:
             return plain_load(name, signatures)
@@ -321,7 +420,7 @@ def _b1_years(kernels, device):
 
 def profile_b1(kernels, unmarked, device, card):
     """B1's and B1v1's phases on each route, beside the unmarked ms"""
-    design, spec = b1_design((imex_cuda.CSRC / "iage_year.cu").read_text())
+    design, spec = source_design("iage_year.cu", B1_DESIGNS)
     lib = imex_cuda._library("iage_year")
     for (name, route), (year, y0) in _b1_years(kernels, device).items():
         year(y0)
@@ -338,6 +437,61 @@ def profile_b1(kernels, unmarked, device, card):
                           "total_cycles_per_step": total,
                           "sm_mhz_implied": total / (1e3 * ms / B1_STEPS),
                           "card": card}), flush=True)
+
+
+def _b2_years(device):
+    """{input: (year, y0)}: chip_smoke.py phase 4's year (40 x 50, 8760
+    steps) from the solver's initial iterate and from seeded uniform
+    noise, which tells whether a gap follows the data"""
+    nz, ny = B1_SHAPE
+    depth, ypos = build_axes(nz, ny)
+    grid = physics.make_grid(depth, ypos, MODELINFO, device=device,
+                             dtype=torch.float32)
+    light = phosphorus.light_lim_2d(depth, ypos, device=device,
+                                    dtype=torch.float32)
+    year = imex_cuda.build_phosphorus_year(
+        grid, phosphorus.DEFAULT_PARAMS, light, (0.0, physics.SEC_PER_YEAR),
+        B1_STEPS, device=device)
+    init = PhosphorusKernel(depth, ypos, MODELINFO, device="cpu",
+                            n_steps=B1_STEPS).init_iterate()
+    noise = np.random.default_rng(0).uniform(0.0, 2.0, (3, nz, ny))
+    return {label: (year, torch.as_tensor(np.asarray(y0), dtype=torch.float32,
+                                          device=device))
+            for label, y0 in (("init_iterate", init), ("noise", noise))}
+
+
+def profile_b2(unmarked, device, card):
+    """B2's phases from each input, beside the unmarked ms"""
+    design, spec = source_design("phosphorus_year.cu", B2_DESIGNS)
+    lib = imex_cuda._library("phosphorus_year")
+    for label, (year, y0) in _b2_years(device).items():
+        year(y0)
+        torch.cuda.synchronize()
+        _phases(lib, "phosphorus_year", spec["labels"], 1)  # reset
+        ms = _run(year, y0)
+        phases = _phases(lib, "phosphorus_year", spec["labels"],
+                         2 * B1_STEPS)
+        total = sum(phases.values())
+        print(json.dumps({"kernel": "B2", "design": design, "input": label,
+                          "year": f"{B1_SHAPE[0]}x{B1_SHAPE[1]}, "
+                                  f"{B1_STEPS} steps",
+                          "ms_unmarked": unmarked[label], "ms_marked": ms,
+                          "cycles_per_step": phases,
+                          "total_cycles_per_step": total,
+                          "sm_mhz_implied": total / (1e3 * ms / B1_STEPS),
+                          "card": card}), flush=True)
+
+
+def profile_b2_variants(variants, paths, device, card):
+    """the unmarked ms of each of B2_VARIANTS named, from each input"""
+    for name, lib in build_b2_variants(variants).items():
+        paths["phosphorus_year"] = lib
+        ms = {label: _run(year, y0)
+              for label, (year, y0) in _b2_years(device).items()}
+        print(json.dumps({"kernel": "B2", "variant": name,
+                          "year": f"{B1_SHAPE[0]}x{B1_SHAPE[1]}, "
+                                  f"{B1_STEPS} steps",
+                          "ms_unmarked": ms, "card": card}), flush=True)
 
 
 def profile_b4(device, card):
@@ -396,10 +550,14 @@ def profile_b3(device, card):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="SM cycles a step by phase of B1, B1v1, B3 and B4")
+        description="SM cycles a step by phase of B1, B1v1, B2, B3 and B4")
     parser.add_argument("--kernels", nargs="+", choices=KERNELS,
                         default=list(KERNELS))
-    kernels = parser.parse_args(argv).kernels
+    parser.add_argument("--b2-variants", nargs="+", choices=B2_VARIANTS,
+                        default=[], help="also profile these variants of "
+                        "B2's design (with B2)")
+    args = parser.parse_args(argv)
+    kernels = args.kernels
     device = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -408,9 +566,16 @@ def main(argv=None):
     b1 = [name for name in ("B1", "B1v1") if name in kernels]
     unmarked = {key: _run(year, y0)
                 for key, (year, y0) in _b1_years(b1, device).items()}
-    _use_probes(build_probes(kernels))
+    unmarked_b2 = ({label: _run(year, y0)
+                    for label, (year, y0) in _b2_years(device).items()}
+                   if "B2" in kernels else {})
+    paths = build_probes(kernels)
+    _use_probes(paths)
     if b1:
         profile_b1(b1, unmarked, device, card)
+    if "B2" in kernels:
+        profile_b2(unmarked_b2, device, card)
+        profile_b2_variants(args.b2_variants, paths, device, card)
     if "B4" in kernels:
         profile_b4(device, card)
     if "B3" in kernels:

@@ -13,7 +13,8 @@
 // G = ca*y_l + cb*y_r (folded with vertical advection into a five-point
 // stencil a cell), a per-channel source, and Kahan-compensated float32
 // accumulation of every increment.  The device code it shares with the
-// phosphorus year (csrc/phosphorus_year.cu) lives in csrc/imex_common.cuh.
+// phosphorus year (csrc/phosphorus_year.cu) lives in csrc/imex_common.cuh
+// and csrc/imex_table.cuh.
 //
 // What bounds it on this card: latency per step, not bytes or flops.  At
 // T = 2 the launch occupies 2 of 132 SMs for 8760 dependent steps.  The
@@ -25,7 +26,8 @@
 // (cli/profile_phases.py).  This design:
 //
 //   * The table (iage_table_kernel, launched once per year function and
-//     shared by IageKernel's F and JVP years): for each of the year's
+//     shared by IageKernel's F and JVP years; at one channel and a zero
+//     diagonal it is the phosphorus year's table): for each of the year's
 //     n_steps + 1 CN solves (the leading dt/2, the merged dt solves, the
 //     trailing dt/2), kv on the (nz-1, ny) interior edges and, for each
 //     channel, the Thomas factors of every cell, m = a / denom,
@@ -65,6 +67,7 @@
 // (nz, ny).
 
 #include "imex_common.cuh"
+#include "imex_table.cuh"
 
 namespace {
 
@@ -75,51 +78,11 @@ using namespace imex;
 constexpr int kThreads = 864;
 constexpr int kMaxLevels = 8;   // levels a lane owns at most (M)
 constexpr int kTableThreads = 128;
-// the table: bulk copies move multiples of 16 bytes from 16-byte aligned
-// addresses, so each part is padded to kAlign floats
-constexpr int kAlign = 4;
-constexpr int kFactors = 3;  // m, w, cp
-
-__host__ __device__ inline long align_floats(long n) {
-  return (n + kAlign - 1) / kAlign * kAlign;
-}
-
-__host__ __device__ inline long kv_floats(int nz, int ny) {
-  return align_floats((long)(nz - 1) * ny);
-}
-
-__host__ __device__ inline long factor_floats(int nz, int ny) {
-  return align_floats((long)kFactors * nz * ny);
-}
-
-// one solve's part of the table: kv, then each channel's m, w, cp
-__host__ __device__ inline long solve_floats(int t_dim, int nz, int ny) {
-  return kv_floats(nz, ny) + t_dim * factor_floats(nz, ny);
-}
-
-// a shared-memory slot: kv, and B1's factors of one channel
-template <bool kPcr>
-__host__ __device__ inline long slot_floats(int nz, int ny) {
-  return kv_floats(nz, ny) + (kPcr ? 0L : factor_floats(nz, ny));
-}
 
 template <bool kPcr>
 __host__ __device__ inline long smem_floats(int nz, int ny) {
   // two slots; y and the stage state ys, published for the lateral stencil
   return 2 * slot_floats<kPcr>(nz, ny) + 2L * nz * ny;
-}
-
-// lanes a column (G): the largest power of two <= 32 with the columns'
-// warps and one more (the slots' producer) within kThreads
-__host__ __device__ inline int column_lanes(int ny) {
-  int lanes = 32;
-  while (lanes > 1 && ((long)lanes * ny + 31) / 32 * 32 + 32 > kThreads)
-    lanes /= 2;
-  return lanes;
-}
-
-__host__ __device__ inline int block_threads(int ny) {
-  return (column_lanes(ny) * ny + 31) / 32 * 32 + 32;
 }
 
 // the time and the step h of CN solve s of a year of n_steps steps: the
@@ -181,76 +144,14 @@ __global__ void __launch_bounds__(kTableThreads)
   }
 }
 
-// -- the slots: cp.async.bulk and an mbarrier a slot ------------------------
-
-__device__ inline unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ inline void slot_bar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// one thread: the copies of `bytes` in all into a slot, completing `bar`
-__device__ inline void slot_expect(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ inline void slot_copy(float* dst, const float* src, unsigned bytes,
-                                 unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ inline void slot_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
 // -- a column's lanes ---------------------------------------------------
 //
 // Lane l of a group owns levels l M .. l M + M - 1 of its column, their
 // values in registers; levels past nz hold 0.
 
-// v at the levels above (k - 1) and below (k + 1) each of the lane's own:
-// its own registers, and one shuffle from each neighbouring lane (lanes at
-// the column's ends get their own values, which the callers mask)
-template <int M>
-__device__ __forceinline__ void column_neighbours(const float (&v)[M],
-                                                  float (&above)[M],
-                                                  float (&below)[M],
-                                                  int lanes) {
-  const float up = __shfl_up_sync(~0u, v[M - 1], 1, lanes);
-  const float down = __shfl_down_sync(~0u, v[0], 1, lanes);
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    above[m] = m > 0 ? v[m - 1] : up;
-    below[m] = m < M - 1 ? v[m + 1] : down;
-  }
-}
-
 // the fused transport tendency of csrc/imex_common.cuh's transport_tend as a
 // five-point stencil: f = cw v(j-1) + cc v + ce v(j+1) + cn v(k-1) +
 // cs v(k+1) + src, the lateral neighbours from the published field v_sh
-struct Stencil {
-  float w, c, e, n, s;
-};
-
 template <int M>
 __device__ __forceinline__ void tendency(const float (&v)[M],
                                          const float* v_sh,
@@ -268,14 +169,6 @@ __device__ __forceinline__ void tendency(const float (&v)[M],
     f[m] = st[m].w * west + st[m].c * v[m] + st[m].e * east +
            st[m].n * above[m] + st[m].s * below[m] + src;
   }
-}
-
-__device__ __forceinline__ void kahan_reg(float& y, float& comp,
-                                          float delta) {
-  const float adj = delta + comp;
-  const float y_new = y + adj;
-  comp = adj - (y_new - y);
-  y = y_new;
 }
 
 // B1's chain over the group's lanes, in place on v: forward
@@ -410,25 +303,6 @@ __device__ __forceinline__ void pcr_rounds(float (&a)[M], float (&b)[M],
 
 // -- the year -----------------------------------------------------------------
 
-// solve s's slice of the table into slot s & 1 (one thread): kv, and B1's
-// factors of channel ch; the slot was last read before a block barrier
-template <bool kPcr>
-__device__ inline void fetch(float* slots, long slot_len,
-                             unsigned long long* bars, const float* table,
-                             int s, int ch, int t_dim, int nz, int ny) {
-  float* slot = slots + (s & 1) * slot_len;
-  const float* part = table + (long)s * solve_floats(t_dim, nz, ny);
-  const unsigned kv_bytes = (unsigned)(kv_floats(nz, ny) * sizeof(float));
-  const unsigned f_bytes = (unsigned)(factor_floats(nz, ny) * sizeof(float));
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  slot_expect(&bars[s & 1], kv_bytes + (kPcr ? 0u : f_bytes));
-  slot_copy(slot, part, kv_bytes, &bars[s & 1]);
-  if (!kPcr)
-    slot_copy(slot + kv_floats(nz, ny),
-              part + kv_floats(nz, ny) + (long)ch * factor_floats(nz, ny),
-              f_bytes, &bars[s & 1]);
-}
-
 // the lane's right-hand side terms of a CN solve over h from the slot's kv:
 // kv on the edges below (up) and above (lo) each level, and
 // rhs = h (Lz + diag) y in flux form
@@ -527,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ __align__(8) unsigned long long slot_bar[2];
   const int n = nz * ny;
   const int ch = blockIdx.x;
-  const int lanes = column_lanes(ny);
+  const int lanes = column_lanes(ny, kThreads);
   // the warp after the columns' issues the slots' copies
   const int producer = (lanes * ny + 31) / 32 * 32;
   const bool columns = threadIdx.x < producer;
@@ -680,7 +554,7 @@ long iage_year_v1_smem_bytes(int nz, int ny) {
 
 // levels a lane owns at nz x ny, if a launch can take the grid; 0 if not
 int iage_year_levels(int nz, int ny) {
-  const int levels = (nz + column_lanes(ny) - 1) / column_lanes(ny);
+  const int levels = (nz + column_lanes(ny, kThreads) - 1) / column_lanes(ny, kThreads);
   return (ny >= 1 && ny <= kThreads - 32 && nz >= 2 && nz <= 1 << kMaxRounds &&
           levels <= kMaxLevels)
              ? levels
@@ -721,7 +595,7 @@ int launch_levels(const float* y0, float* out, const float* fields,
       iage_year_kernel<M, kPcr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  iage_year_kernel<M, kPcr><<<t_dim, block_threads(ny), smem,
+  iage_year_kernel<M, kPcr><<<t_dim, block_threads(ny, kThreads), smem,
                               (cudaStream_t)stream>>>(
       y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt);
   return (int)cudaGetLastError();

@@ -24,7 +24,8 @@ runs the hand-written kernel (ops/imex_cuda.py::build_iage_year,
 ::build_phosphorus_year); every other combination -- the CPU, or float64 on
 either device -- runs the plain ops/imex.py::imex_year.  IageKernel's F and
 JVP years on the kernel share one table of the year's CN solves
-(ops/imex_cuda.py::build_iage_table).
+(ops/imex_cuda.py::build_iage_table); PhosphorusKernel's F year runs on its
+own, built once (build_phosphorus_table).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ...ops.imex_cuda import (
     build_iage_table,
     build_iage_year,
     build_iage_year_plain,
+    build_phosphorus_table,
     build_phosphorus_year,
     build_phosphorus_year_plain,
 )
@@ -277,7 +279,11 @@ class PhosphorusKernel(_InCoreKernel):
         # forward-mode AD runs through the plain year on every device
         self._year_plain = build_phosphorus_year_plain(*year_args)
         if self.use_kernel:
-            self._year_fn = build_phosphorus_year(*year_args, device=self.device)
+            # the table of the year's CN solves, built once
+            self.table = build_phosphorus_table(self.grid, (0.0, self.year),
+                                                n_steps, device=self.device)
+            self._year_fn = build_phosphorus_year(*year_args, device=self.device,
+                                                  table=self.table)
         else:
             self._year_fn = self._year_plain
 

@@ -17,7 +17,8 @@ interior edges and each channel's Thomas factors (m, w, cp), for each of
 the year's n_steps + 1 solves.  B1 and B1v1 stream it a step ahead; one
 table serves every year of the same grid, implicit diagonal, span and steps
 (IageKernel's F and JVP years).  `iage_table_plain` is its plain version,
-`cn_increment_factored` the CN increment from its factors (B1's chain) and
+`cn_increment_factored` the CN increment from its factors (B1's and B2's
+chain, serial or in the kernels' scan order) and
 `build_iage_year_factored` the year through that increment, in plain
 PyTorch.
 
@@ -31,12 +32,15 @@ build_iage_year_plain, whose ops/tridiag.py::pcr_solve is divide-form PCR.
 newton_krylov_ooc_tpu/ops/imex_pallas.py::build_phosphorus_year_pallas:
 (grid, params, light_lim, t_span, n_steps) -> year(y0) with y0 the
 (3, nz, ny) po4/dop/pop state, the whole coupled year in one launch of
-csrc/phosphorus_year.cu.  Forward only: the model is nonlinear, so its
-Jacobian-vector products go through forward-mode AD of the plain year
+csrc/phosphorus_year.cu.  It streams B1's table of one channel with a zero
+implicit diagonal (`build_phosphorus_table`), whose factors serve the three
+tracers.  Forward only: the model is nonlinear, so its Jacobian-vector
+products go through forward-mode AD of the plain year
 (models/py_driver_2d/incore.py::PhosphorusKernel.jvp), as the JAX package
 keeps them off its kernel.  `build_phosphorus_year_plain` is imex_year over
 models/py_driver_2d/phosphorus.py::explicit_tend with a zero implicit
-diagonal.
+diagonal; `build_phosphorus_year_factored` is the kernel's step in plain
+PyTorch (the table's factors, the scan chain, the Kahan adds).
 
 Each wrapper takes the plain version only on the CPU; for a CUDA float32
 tensor it launches its kernel or raises.  Each kernel source is compiled
@@ -80,8 +84,8 @@ SOURCES = {
     "transport3d_block": "transport3d_block.cu",
 }
 INCLUDES = {
-    "iage_year": ("imex_common.cuh",),
-    "phosphorus_year": ("imex_common.cuh",),
+    "iage_year": ("imex_common.cuh", "imex_table.cuh"),
+    "phosphorus_year": ("imex_common.cuh", "imex_table.cuh"),
     "transport3d_year": ("transport3d_common.cuh",),
     "transport3d_stream": ("transport3d_stream_passes.cuh",
                            "transport3d_common.cuh"),
@@ -99,6 +103,11 @@ NVCC_FLAGS = (
 _HEADER = 16  # scalars ahead of the constant fields (csrc/imex_common.cuh)
 _PARAMS = 8   # phosphorus scalars after them (csrc/phosphorus_year.cu)
 _PHOS_TRACERS = 3  # po4, dop, pop
+# csrc/phosphorus_year.cu's cluster: kCtas blocks of kThreads threads at most;
+# csrc/iage_year.cu's block: kThreads
+_PHOS_CTAS = 4
+_PHOS_THREADS = 256
+_IAGE_THREADS = 864
 
 # launches of each CUDA year kernel in this process (one per year(y0) call
 # on a CUDA tensor); callers reset them to 0 to count a run's launches
@@ -192,15 +201,17 @@ def load_library(name, signatures):
 
 def _library(name):
     c_int, c_ptr, c_long = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
+    c_float = ctypes.c_float
     shape = [c_int] * _SHAPE_ARGS[name]
-    # y0, out, fields (and the iage table), shape, n_steps, t0, dt, stream
-    pointers = [c_ptr] * (4 if name == "iage_year" else 3)
-    launch = (pointers + shape + [c_int] + [ctypes.c_float] * 2 + [c_ptr],
-              c_int)
+    # y0, out, fields, table, shape, n_steps, then t0 and dt (iage) or dt
+    # (phosphorus), stream
+    times = [c_float] * (2 if name == "iage_year" else 1)
+    launch = ([c_ptr] * 4 + shape + [c_int] + times + [c_ptr], c_int)
     signatures = {
         "fields_len": (shape, c_long),
         "smem_bytes": ([c_int] * 2, c_long),
         "smem_optin": ([c_int, ctypes.POINTER(c_int)], c_int),
+        "levels": ([c_int] * 2, c_int),
         "launch": launch,
     }
     if name == "iage_year":
@@ -208,11 +219,10 @@ def _library(name):
         signatures.update(
             v1_smem_bytes=([c_int] * 2, c_long),
             v1_launch=launch,
-            levels=([c_int] * 2, c_int),
             kv_floats=([c_int] * 2, c_long),
             factor_floats=([c_int] * 2, c_long),
             table_floats=([c_int] * 4, c_long),
-            table_launch=([c_ptr] * 2 + [c_int] * 4 + [ctypes.c_float] * 2
+            table_launch=([c_ptr] * 2 + [c_int] * 4 + [c_float] * 2
                           + [c_ptr], c_int),
         )
     return load_library(name, signatures)
@@ -385,24 +395,28 @@ def solve_times(t_span, n_steps):
     return times, h
 
 
-def iage_table_plain(grid, vert_diag, times, h):
+def iage_table_plain(grid, vert_diag, times, h, factor_dtype=None):
     """(kv, m, w, cp) of CN solves at `times` over steps `h`, in the grid's
     dtype and on its device: kv (S, nz-1, ny) from
     physics.vert_mixing_coeff, and the Thomas factors (S, T, nz, ny) of each
     channel's (I - h/2 (Lz + diag)): m = a / denom, w = 1 / denom,
     cp = c / denom, with denom = b - a cp of the level above -- csrc/
-    iage_year.cu's iage_table_kernel in plain PyTorch"""
+    iage_year.cu's iage_table_kernel in plain PyTorch.  factor_dtype: the
+    dtype the factors are formed in from kv, dz_r and diag (by default the
+    grid's), each rounded once to the grid's dtype"""
     nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
     dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
+    work = dtype if factor_dtype is None else factor_dtype
     diag = _cpu64(vert_diag).reshape(-1, nz, ny).to(device=device,
-                                                    dtype=dtype)
+                                                    dtype=dtype).to(work)
     kv = torch.stack([physics.vert_mixing_coeff(grid, float(t))
                       for t in times])
-    half = 0.5 * torch.as_tensor(np.asarray(h), dtype=dtype,
+    kv_w, dz_r = kv.to(work), grid.dz_r.to(work)
+    half = 0.5 * torch.as_tensor(np.asarray(h), dtype=work,
                                  device=device)[:, None, None, None]
-    zero = kv.new_zeros(kv.shape[0], 1, ny)
-    du = torch.cat([kv * grid.dz_r[:-1, None], zero], dim=1)[:, None]
-    dl = torch.cat([zero, kv * grid.dz_r[1:, None]], dim=1)[:, None]
+    zero = kv_w.new_zeros(kv.shape[0], 1, ny)
+    du = torch.cat([kv_w * dz_r[:-1, None], zero], dim=1)[:, None]
+    dl = torch.cat([zero, kv_w * dz_r[1:, None]], dim=1)[:, None]
     dmain = -(du + dl) + diag
     a = (-half * dl).expand_as(dmain)
     b = 1.0 - half * dmain
@@ -415,7 +429,7 @@ def iage_table_plain(grid, vert_diag, times, h):
         m[..., k, :] = a[..., k, :] / denom
         w[..., k, :] = 1.0 / denom
         cp[..., k, :] = cp_prev
-    return kv, m, w, cp
+    return kv, m.to(dtype), w.to(dtype), cp.to(dtype)
 
 
 def pack_table(kv, m, w, cp):
@@ -546,11 +560,72 @@ def build_iage_table(grid, vert_diag, t_span, n_steps, *, device):
     return IageTable(tensor, key, shape, n_steps, t0, dt, events)
 
 
-def cn_increment_factored(kv, m, w, cp, diag, dz_r, v, h):
+def column_lanes(ny, threads=_IAGE_THREADS):
+    """lanes a column (G) of csrc/iage_year.cu and csrc/phosphorus_year.cu
+    (csrc/imex_table.cuh's column_lanes): the largest power of two <= 32
+    with the columns' warps and the producer warp within `threads` (their
+    kThreads)"""
+    lanes = 32
+    while lanes > 1 and -(-lanes * ny // 32) * 32 + 32 > threads:
+        lanes //= 2
+    return lanes
+
+
+def _fma(a, b, c):
+    """a b + c rounded once, as the card's fmaf: float32 operands multiply
+    exactly in float64"""
+    if a.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _scan_recurrence(v, mult, lanes, reverse):
+    """x_k = v_k + mult_k x_{k-1} (x_{k+1} if reverse) down the level axis
+    (-2) of v, in the kernels' order: the levels dealt to `lanes` lanes, M
+    contiguous levels each; each lane composes its levels' affine maps,
+    log2(lanes) Hillis-Steele rounds over the lanes give each its carry,
+    and the lane applies its maps from it (fmaf as the card rounds it)"""
+    nz = v.shape[-2]
+    levels = -(-nz // lanes)
+    pad = lanes * levels - nz
+    # lane l owns levels l M .. l M + M - 1; levels past nz hold 0
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    mult = torch.nn.functional.pad(mult.expand(v.shape[:-2] + (nz, -1)),
+                                   (0, 0, 0, pad))
+    if reverse:
+        v, mult = v.flip(-2), mult.flip(-2)
+    shape = v.shape[:-2] + (lanes, levels, v.shape[-1])
+    vl, ml = v.reshape(shape), mult.reshape(shape)
+    big_a = torch.ones_like(vl[..., 0, :])
+    big_b = torch.zeros_like(big_a)
+    for lvl in range(levels):
+        big_b = _fma(ml[..., lvl, :], big_b, vl[..., lvl, :])
+        big_a = ml[..., lvl, :] * big_a
+    lane = torch.arange(lanes, device=v.device)[:, None]
+    dist = 1
+    while dist < lanes:
+        prev_a = torch.roll(big_a, dist, dims=-2)
+        prev_b = torch.roll(big_b, dist, dims=-2)
+        on = lane >= dist
+        big_b = torch.where(on, _fma(big_a, prev_b, big_b), big_b)
+        big_a = torch.where(on, big_a * prev_a, big_a)
+        dist *= 2
+    x = torch.roll(big_b, 1, dims=-2)
+    x = torch.where(lane == 0, torch.zeros_like(x), x)
+    out = torch.empty_like(vl)
+    for lvl in range(levels):
+        x = _fma(ml[..., lvl, :], x, vl[..., lvl, :])
+        out[..., lvl, :] = x
+    out = out.reshape(v.shape)
+    return (out.flip(-2) if reverse else out)[..., :nz, :]
+
+
+def cn_increment_factored(kv, m, w, cp, diag, dz_r, v, h, lanes=None):
     """the Crank-Nicolson increment of ops/imex.py::cn_vertical_increment
-    from a table's factors, as B1 computes it: r' = h (Lz + diag) v * w,
+    from a table's factors, as B1 and B2 compute it: r' = h (Lz + diag) v w,
     gp_k = r'_k - m_k gp_{k-1} down the column, x_k = gp_k - cp_k x_{k+1}
-    up it
+    up it -- serially (lanes None), or as the kernels' affine-map scans
+    over `lanes` lanes a column (_scan_recurrence)
 
     kv: (nz-1, ny); m, w, cp, diag, v: (..., nz, ny), leading axes batched
     """
@@ -559,6 +634,9 @@ def cn_increment_factored(kv, m, w, cp, diag, dz_r, v, h):
     rhs = h * (dz_r[:, None] * (torch.cat([flux, zrow], dim=-2)
                                 - torch.cat([zrow, flux], dim=-2)) + diag * v)
     r = rhs * w
+    if lanes is not None:
+        gp = _scan_recurrence(r, -m, lanes, reverse=False)
+        return _scan_recurrence(gp, -cp, lanes, reverse=True)
     nz = v.shape[-2]
     gp = torch.empty_like(r)
     g = torch.zeros_like(r[..., 0, :])
@@ -573,24 +651,15 @@ def cn_increment_factored(kv, m, w, cp, diag, dz_r, v, h):
     return x
 
 
-def build_iage_year_factored(grid, vert_diag, source, t_span, n_steps):
-    """year(y0: (T, nz, ny)) -> y(t_end) in the grid's dtype and on its
-    device: B1's step in plain PyTorch -- ops/imex.py::imex_year's scheme
-    with each CN solve from iage_table_plain's factors
-    (cn_increment_factored)"""
-    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+def _factored_year(tend, grid, diag, shape, t_span, n_steps, factor_dtype,
+                   lanes):
+    """year(y0) of ops/imex.py::imex_year's scheme with each CN solve from
+    iage_table_plain's factors (cn_increment_factored) and the explicit
+    tendency tend(y), in the grid's dtype and on its device"""
     dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
-    diag, src = _channels(vert_diag, source, nz, ny)
-    t_dim = diag.shape[0]
-    diag = diag.to(device=device, dtype=dtype)
-    src = src.to(device=device, dtype=dtype).reshape(t_dim, 1, 1)
     times, h = solve_times(t_span, n_steps)
-    kv, m, w, cp = iage_table_plain(grid, diag, times, h)
+    kv, m, w, cp = iage_table_plain(grid, diag, times, h, factor_dtype)
     dt = (float(t_span[1]) - float(t_span[0])) / n_steps
-
-    def tend(y):
-        return (physics.advection_tend(grid, y)
-                + physics.horiz_mix_tend(grid, y) + src)
 
     def kahan(y, comp, delta):
         adj = delta + comp
@@ -599,10 +668,10 @@ def build_iage_year_factored(grid, vert_diag, source, t_span, n_steps):
 
     def cn(s, y):
         return cn_increment_factored(kv[s], m[s], w[s], cp[s], diag,
-                                     grid.dz_r, y, float(h[s]))
+                                     grid.dz_r, y, float(h[s]), lanes)
 
     def year(y0):
-        _check_state(y0, (t_dim, nz, ny), dtype, device)
+        _check_state(y0, shape, dtype, device)
         y, comp = kahan(y0, torch.zeros_like(y0), cn(0, y0))
         for step in range(n_steps):
             f1 = tend(y)
@@ -612,6 +681,29 @@ def build_iage_year_factored(grid, vert_diag, source, t_span, n_steps):
         return y
 
     return year
+
+
+def build_iage_year_factored(grid, vert_diag, source, t_span, n_steps,
+                             factor_dtype=None, lanes=None):
+    """year(y0: (T, nz, ny)) -> y(t_end) in the grid's dtype and on its
+    device: B1's step in plain PyTorch -- ops/imex.py::imex_year's scheme
+    with each CN solve from iage_table_plain's factors
+    (cn_increment_factored).  factor_dtype: the dtype the table's factors
+    are formed in (by default the grid's); lanes: None for the serial
+    chain, else the kernel's scan over that many lanes a column"""
+    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+    dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
+    diag, src = _channels(vert_diag, source, nz, ny)
+    t_dim = diag.shape[0]
+    diag = diag.to(device=device, dtype=dtype)
+    src = src.to(device=device, dtype=dtype).reshape(t_dim, 1, 1)
+
+    def tend(y):
+        return (physics.advection_tend(grid, y)
+                + physics.horiz_mix_tend(grid, y) + src)
+
+    return _factored_year(tend, grid, diag, (t_dim, nz, ny), t_span, n_steps,
+                          factor_dtype, lanes)
 
 
 def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device,
@@ -748,16 +840,58 @@ def _pack_phosphorus_fields(grid, params, light):
     return _flat32([header, torch.as_tensor(scalars), *grid_parts, light])
 
 
+def _zero_diag(nz, ny):
+    """the phosphorus year's implicit diagonal: none, one channel"""
+    return torch.zeros((1, nz, ny), dtype=torch.float64)
+
+
+def build_phosphorus_table(grid, t_span, n_steps, *, device):
+    """the table of a phosphorus year's n_steps + 1 CN solves: B1's table
+    (build_iage_table) of one channel with a zero implicit diagonal, whose
+    factors serve the three tracers"""
+    nz, ny = int(grid.depth_mid.shape[0]), int(grid.ypos_mid.shape[0])
+    return build_iage_table(grid, _zero_diag(nz, ny), t_span, n_steps,
+                            device=device)
+
+
+def phosphorus_lanes(ny):
+    """lanes a column (G) of csrc/phosphorus_year.cu at ny columns: its
+    kCtas blocks each own ceil(ny / kCtas) columns within kThreads"""
+    return column_lanes(-(-ny // _PHOS_CTAS), _PHOS_THREADS)
+
+
+def build_phosphorus_year_factored(grid, params, light_lim, t_span, n_steps):
+    """year(y0: (3, nz, ny)) -> y(t_end) in the grid's dtype and on its
+    device: B2's step in plain PyTorch -- the plain year's scheme and
+    tendency with each CN solve from the zero-diagonal table's factors,
+    the chain as the kernel's scans over its lanes a column
+    (phosphorus_lanes) and the Kahan adds"""
+    nz, ny = grid.depth_mid.shape[0], grid.ypos_mid.shape[0]
+    dtype, device = grid.depth_mid.dtype, grid.depth_mid.device
+    light = _light_field(light_lim, nz, ny).to(device=device, dtype=dtype)
+    params = {key: float(val) for key, val in params.items()}
+    diag = _zero_diag(nz, ny).to(device=device, dtype=dtype)
+
+    def tend(y):
+        return phosphorus.explicit_tend(grid, params, light, y)
+
+    return _factored_year(tend, grid, diag, (_PHOS_TRACERS, nz, ny), t_span,
+                          n_steps, None, phosphorus_lanes(ny))
+
+
 def build_phosphorus_year(grid, params, light_lim, t_span, n_steps, *,
-                          device):
+                          device, table=None):
     """year(y0: (3, nz, ny) float32) -> y(t_end), the whole coupled year in
     one launch of the CUDA kernel on a CUDA `device`; on the CPU, the plain
     version in float32.
 
     grid: physics.Grid2D (any dtype; the kernel's constants are float32);
     params: the phosphorus parameter dict; light_lim: (nz, ny) light
-    limitation.  Raises ValueError when the 3-tracer year's shared-memory
-    plan exceeds what one block may use on the card.
+    limitation; table: an IageTable of build_phosphorus_table for the same
+    grid, t_span and n_steps, shared with other years (by default the year
+    builds its own).  Raises ValueError when the grid does not fit the
+    kernel's lanes or its shared-memory plan exceeds what one block may use
+    on the card.
     """
     device = resolve_device(device)
     if device.type == "cpu":
@@ -774,11 +908,20 @@ def build_phosphorus_year(grid, params, light_lim, t_span, n_steps, *,
         raise RuntimeError(
             "packed constants disagree with csrc/phosphorus_year.cu"
         )
+    if not lib.phosphorus_year_levels(nz, ny):
+        raise ValueError(
+            f"the phosphorus_year kernel takes columns of at least 2 levels "
+            f"on at most 32 lanes of its blocks and 4 levels a lane, and at "
+            f"least {_PHOS_CTAS} columns: {nz}x{ny} does not fit")
     _check_smem(lib, "phosphorus_year", nz, ny, device,
-                "the 3-tracer year")
-    t0 = float(t_span[0])
-    dt = float((t_span[1] - t_span[0]) / n_steps)
-    shape = (_PHOS_TRACERS, nz, ny)
+                "the 3-tracer year's slots and published state")
+    t0, dt = _time_step(t_span, n_steps)
+    shape, n_steps = (_PHOS_TRACERS, nz, ny), int(n_steps)
+    if table is None:
+        table = build_phosphorus_table(grid, t_span, n_steps, device=device)
+    else:
+        table.check(_table_key(grid, _zero_diag(nz, ny)), (1, nz, ny),
+                    n_steps, t0, dt, device)
 
     def year(y0):
         global phosphorus_year_launches
@@ -788,7 +931,7 @@ def build_phosphorus_year(grid, params, light_lim, t_span, n_steps, *,
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.phosphorus_year_launch(
                 y0.data_ptr(), out.data_ptr(), fields.data_ptr(),
-                nz, ny, int(n_steps), t0, dt, stream,
+                table.tensor.data_ptr(), nz, ny, n_steps, dt, stream,
             )
         if err:
             raise cuda_error(lib, "phosphorus_year", err,

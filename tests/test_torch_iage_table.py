@@ -121,9 +121,12 @@ def test_factored_year_matches_pallas_kernel_f32(nz, ny, n_steps, aging):
 @pytest.mark.parametrize("nz, ny, n_steps", SHAPES + [(40, 50, 3)])
 def test_table_layout_matches_the_kernel_source(nz, ny, n_steps):
     """the wrapper's table layout (offsets, bytes) is the one
-    csrc/iage_year.cu counts: each part padded to its kAlign floats,
-    kFactors fields a channel; packing and unpacking are inverse"""
-    source = (imex_cuda.CSRC / "iage_year.cu").read_text()
+    csrc/iage_year.cu counts (its layout in csrc/imex_table.cuh): each part
+    padded to its kAlign floats, kFactors fields a channel; packing and
+    unpacking are inverse"""
+    source = (imex_cuda.CSRC / "imex_table.cuh").read_text()
+    assert '#include "imex_table.cuh"' in (
+        imex_cuda.CSRC / "iage_year.cu").read_text()
     align = int(re.search(r"constexpr int kAlign = (\d+);", source).group(1))
     factors = int(re.search(r"constexpr int kFactors = (\d+);",
                             source).group(1))

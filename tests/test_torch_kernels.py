@@ -21,7 +21,10 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     SURF_SLOW_FACTOR,
     surf_restore_rate,
 )
-from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import IageKernel
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (
+    IageKernel,
+    PhosphorusKernel,
+)
 from newton_krylov_ooc_tpu_torch.ops import (
     imex_block_cuda,
     imex_cuda,
@@ -197,24 +200,35 @@ def test_iage_kernel_builds_one_table(cuda_device):
         assert float((got - ref).abs().max()) / float(y0.abs().max()) < TOL
 
 
-def _phosphorus_year(nz, ny, n_steps, device):
+def _phosphorus_year(nz, ny, n_steps, device, years=1.0):
     depth, ypos = build_axes(nz, ny)
     grid = physics.make_grid(depth, ypos, MODELINFO, device=device,
                              dtype=torch.float32)
     light = phosphorus.light_lim_2d(depth, ypos, device=device,
                                     dtype=torch.float32)
     args = (grid, phosphorus.DEFAULT_PARAMS, light,
-            (0.0, physics.SEC_PER_YEAR), n_steps)
+            (0.0, years * physics.SEC_PER_YEAR), n_steps)
     return (imex_cuda.build_phosphorus_year(*args, device=device),
             imex_cuda.build_phosphorus_year_plain(*args))
 
 
-@pytest.mark.parametrize("nz, ny, n_steps", [(8, 6, 24), (40, 50, 8760)])
-def test_phosphorus_year_kernel_matches_plain(cuda_device, nz, ny, n_steps):
-    year_k, year_p = _phosphorus_year(nz, ny, n_steps, cuda_device)
+# the JAX tests' grid, phase 4's year, and a grid whose columns and levels
+# divide into no lane group (53 columns: blocks of 14, 14, 14 and 11
+# columns of 16 lanes, 37 levels: 3 a lane, the last partial) over the first
+# tenth of the year at phase 4's hourly step
+PHOSPHORUS_SHAPES = [(8, 6, 24, 1.0), (40, 50, 8760, 1.0), (37, 53, 876, 0.1)]
+
+
+@pytest.mark.parametrize("nz, ny, n_steps, years", PHOSPHORUS_SHAPES)
+def test_phosphorus_year_kernel_matches_plain(cuda_device, nz, ny, n_steps,
+                                              years):
+    """each tracer within TOL of its own largest value: dop and pop are
+    held, not only the largest tracer"""
+    year_k, year_p = _phosphorus_year(nz, ny, n_steps, cuda_device, years)
     rng = np.random.default_rng(9)
     y0 = torch.as_tensor(rng.uniform(0.0, 2.0, (3, nz, ny)), dtype=torch.float32,
                          device=cuda_device)
+    y0[1:] *= torch.tensor([[[0.05]], [[0.01]]], device=cuda_device)
 
     before = imex_cuda.phosphorus_year_launches
     y_k = year_k(y0)
@@ -223,8 +237,83 @@ def test_phosphorus_year_kernel_matches_plain(cuda_device, nz, ny, n_steps):
     y_p = year_p(y0)
 
     assert torch.isfinite(y_k).all()
-    scale = float(y_p.abs().max())
-    assert float((y_k - y_p).abs().max()) / scale < TOL
+    for tr in range(3):
+        scale = float(y_p[tr].abs().max())
+        assert float((y_k[tr] - y_p[tr]).abs().max()) / scale < TOL, tr
+
+
+def test_phosphorus_year_kernel_deep_columns(cuda_device):
+    """60 levels (4 a lane, the most the kernel takes) over the year's first
+    219 hourly steps, each tracer against the plain float64 year: no
+    further from it than the plain float32 year is.  In these deep, stiff
+    columns float32 rounding in any order moves the year by ~1e-4 (on the
+    CPU: the kernel's step in plain PyTorch 9.9e-5, 7.1e-5 and 2.9e-5 from
+    float64 by tracer, the same with its table formed in float64 1.3e-4,
+    5.8e-5 and 4.3e-5, the plain float32 PCR year 2.4e-4, 3.0e-4 and
+    8.9e-5), so no float32 year is a yardstick for another here"""
+    nz, ny, n_steps = 60, 50, 219
+    depth, ypos = build_axes(nz, ny)
+    span = (0.0, 0.025 * physics.SEC_PER_YEAR)
+    args = {}
+    for dtype in (torch.float32, torch.float64):
+        grid = physics.make_grid(depth, ypos, MODELINFO, device=cuda_device,
+                                 dtype=dtype)
+        light = phosphorus.light_lim_2d(depth, ypos, device=cuda_device,
+                                        dtype=dtype)
+        args[dtype] = (grid, phosphorus.DEFAULT_PARAMS, light, span, n_steps)
+    y0 = torch.as_tensor(np.random.default_rng(9).uniform(0.0, 2.0,
+                                                          (3, nz, ny)),
+                         dtype=torch.float32, device=cuda_device)
+    y0[1:] *= torch.tensor([[[0.05]], [[0.01]]], device=cuda_device)
+    y_k = imex_cuda.build_phosphorus_year(*args[torch.float32],
+                                          device=cuda_device)(y0)
+    torch.cuda.synchronize()
+    y_32 = imex_cuda.build_phosphorus_year_plain(*args[torch.float32])(y0)
+    y_64 = imex_cuda.build_phosphorus_year_plain(*args[torch.float64])(
+        y0.double())
+    assert torch.isfinite(y_k).all()
+    for tr in range(3):
+        scale = float(y_64[tr].abs().max())
+        err_k = float((y_k[tr].double() - y_64[tr]).abs().max()) / scale
+        err_32 = float((y_32[tr].double() - y_64[tr]).abs().max()) / scale
+        assert err_k <= err_32, (tr, err_k, err_32)
+
+
+def test_phosphorus_kernel_builds_one_table(cuda_device):
+    """PhosphorusKernel's year runs on one table, built once; the year
+    refuses a table of a nonzero diagonal or of another span"""
+    nz, ny, n_steps = 8, 6, 24
+    depth, ypos = build_axes(nz, ny)
+    before = imex_cuda.iage_table_launches
+    kernel = PhosphorusKernel(depth, ypos, MODELINFO, device=cuda_device,
+                              n_steps=n_steps)
+    assert imex_cuda.iage_table_launches == before + 1
+    assert kernel.table.shape == (1, nz, ny)
+    x = kernel.init_iterate()
+    years = imex_cuda.phosphorus_year_launches
+    fcn = kernel.comp_fcn(x)
+    kernel.comp_fcn(x + 0.01)
+    torch.cuda.synchronize()
+    assert imex_cuda.phosphorus_year_launches == years + 2
+    assert imex_cuda.iage_table_launches == before + 1
+    ref = kernel._year_plain(x) - x
+    assert float((fcn - ref).abs().max()) / float(x.abs().max()) < TOL
+
+    grid = kernel.grid
+    span = (0.0, physics.SEC_PER_YEAR)
+    args = (grid, kernel.params, kernel.light_lim, span, n_steps)
+    nonzero = imex_cuda.build_iage_table(
+        grid, np.full((1, nz, ny), -1e-7), span, n_steps, device=cuda_device)
+    other_span = imex_cuda.build_phosphorus_table(
+        grid, (0.0, 0.5 * physics.SEC_PER_YEAR), n_steps, device=cuda_device)
+    launches = imex_cuda.phosphorus_year_launches
+    for table in (nonzero, other_span):
+        with pytest.raises(ValueError, match="another year"):
+            imex_cuda.build_phosphorus_year(*args, device=cuda_device,
+                                            table=table)
+    imex_cuda.build_phosphorus_year(*args, device=cuda_device,
+                                    table=kernel.table)
+    assert imex_cuda.phosphorus_year_launches == launches
 
 
 def test_phosphorus_year_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -235,6 +324,13 @@ def test_phosphorus_year_kernel_rejects_what_it_cannot_take(cuda_device):
                 .transpose(1, 2)):
         with pytest.raises(ValueError):
             year(bad)
+    # no steps, a column of too many levels a lane
+    with pytest.raises(ValueError, match="at least one step"):
+        _phosphorus_year(8, 6, 0, cuda_device)
+    with pytest.raises(ValueError, match="4 levels a lane"):
+        _phosphorus_year(300, 6, 24, cuda_device)
+    with pytest.raises(ValueError, match="4 levels a lane"):
+        _phosphorus_year(75, 50, 24, cuda_device)
     assert imex_cuda.phosphorus_year_launches == before
 
 
