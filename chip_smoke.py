@@ -10,7 +10,8 @@ sharded py_driver_2d module-family spin-up on a (module, space) mesh
 (kernel iage_block, the interior of the blocked sharded year), the
 blocked latitude-sharded 3D year (kernel transport3d_block) at gx1's
 horizontal extent and at full gx1 depth, and the first layout of the iage
-year (kernel iage_year_v1, iage_year's PCR variant).
+year (kernel iage_year_v1, iage_year's PCR variant), and the dense year
+operator of the iage year, probed through iage_year under its channel map.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -28,10 +29,14 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     its JSON entry's times); iage_table, the table of the year's CN solves
     that iage_year and iage_year_v1 stream, against its plain version over
     the tenth (its JSON entry's times) and its full year's build timed;
-  3 the iage Newton-Krylov solve through the port's CLI entry point,
-    checked for convergence, for launches of the kernel and of the table
-    kernel (one table for the F and JVP years), and against a float64
-    plain evaluation of F at the solution;
+  3 the iage Newton-Krylov solve through the port's CLI entry point
+    (host-driven), then on the CLI's kernel host-driven, with the fused
+    GMRES and with the fused Newton solve, each checked for convergence and
+    for launches of the kernel and of the table kernel (one table for every
+    solve's F and JVP years), the CLI's solution against a float64 plain
+    evaluation of F, and each fused solve against the host one: the same
+    Newton count, Krylov counts within one at each step, iterates within
+    1e-4 (phases 7, 10 and 12 hold theirs so too);
   4 phosphorus_year against its plain PyTorch version at 40 x 50 x 8760,
     from the initial iterate, from seeded uniform noise and from a constant
     0.5, timed, with the kernel's one-year drift of total phosphorus: each
@@ -50,9 +55,10 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     gas-exchange-coupled ABIO_DIC/DIC14 pair, with the kernel's launches
     (one a year), grid syncs a year and tile layout;
   7 the gx3 spin-up (ShardedTransport3dKernel + NewtonKrylovInCore with the
-    JAX bench's settings, float32, F and JVPs on the kernel), checked for
-    convergence, for launches, and against a float64 plain evaluation of F
-    at the solution, with the seconds in F, JVPs and the preconditioner;
+    JAX bench's settings, float32, F and JVPs on the kernel), host-driven
+    and with the fused GMRES, checked for convergence, for launches, and
+    (the host solution) against a float64 plain evaluation of F, with the
+    seconds in F, JVPs and the preconditioner;
   8 transport3d_stream at gx1, uncut, for the JAX bench's gx1 inputs: the
     steady upwind3 year (T = 1, recip_vol factored), timed at 2000 steps
     beside transport3d_year on the same inputs, both held against the plain
@@ -79,10 +85,12 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     (both solve their columns in float64);
  10 the sharded spin-up through cli/sharded_spinup.py's entry function at
     the example's defaults (4 modules, 24 x 48, 2920 steps, float32 on
-    iage_block) on a (1, 1) mesh and on 4 shards of the one card, checked
-    for convergence, for launches (one a year: every shard of the card in
-    one launch), against a float64 per-step evaluation of F at each
-    solution, and against each other, with the host's halo copies a year;
+    iage_block, the fused GMRES) on a (1, 1) mesh and on 4 shards of the
+    one card, checked for convergence, for launches (one a year: every
+    shard of the card in one launch), against a float64 per-step
+    evaluation of F at each solution, and against each other, with the
+    host's halo copies a year; then host-driven and fused again on the
+    CLI's kernel (both warm);
  11 transport3d_sweep at gx1, uncut, on phase 8's steady upwind3 inputs:
     the 2000-step year on a 1-shard mesh timed beside transport3d_stream
     (the overhead in percent; the two agree within 1e-6), on 4 shards of
@@ -98,8 +106,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     the example's defaults (10 x 24 x 20, 4 months, the family and the
     coupled pair) with 1, 4 and 2x2 shards on the card (one shard runs
     transport3d_year; more run the per-step sharded year, plain PyTorch
-    as in the JAX package), checked for convergence, against a float64
-    plain evaluation of F at each solution, and against each other;
+    as in the JAX package; the fused GMRES), checked for convergence,
+    against a float64 plain evaluation of F at each solution, and against
+    each other; then host-driven on the CLI's kernels;
  13 transport3d_block in the blocked sharded 3D year: (a) the JAX slow
     test's coupled dic/dic14 pair at gx1's horizontal extent (3 x 384 x
     320, 368 steps, blocks of 4) on 1 and 8 shards of the card, timed
@@ -116,7 +125,19 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
  14 iage_year_v1 (B1's PCR variant) at phase 2's size, on its F and JVP
     years, timed beside iage_year, each within 5e-5 of the plain f32 year
     and 1e-4 of the f64 year over the first tenth (the F route's tenth its
-    JSON entry's times); the timed full years are its path.
+    JSON entry's times); the timed full years are its path;
+ 15 the dense year operator through cli/year_operator_spinup.py at the
+    example's defaults (40 x 50, 8760 steps, chunks of 125 columns): the
+    probe through iage_year, 250 channels a launch on the kernel's one
+    T = 2 table (its bytes and the probe's seconds printed), the direct
+    solve and the spectrum; gated on one table launch, the operator's F
+    and JVP against iage_year's within 1e-5, F(X*) through iage_year
+    within 1e-5 of max|X*|, and one probe launch (the first chunk's 250
+    unit columns, 125 channels to each slot) over the first tenth no
+    farther from the plain f64 year than the plain f32 year is (a unit
+    column decays to a few hundredths of itself, so relative to the
+    output's max both lie beyond phase 2's 5e-5 from f64; its distance
+    from the plain f32 year printed).
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
 year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
@@ -139,6 +160,7 @@ from newton_krylov_ooc_tpu_torch.cli import (
     incore_spinup,
     irf3d_spinup,
     sharded_spinup,
+    year_operator_spinup,
 )
 from newton_krylov_ooc_tpu_torch.core.incore import NewtonKrylovInCore
 from newton_krylov_ooc_tpu_torch.models.irf_offline import synthetic
@@ -259,6 +281,17 @@ SHARDED_MESHES = (("(1, 1)", ["1", "1"]),
                   ("(1, 4) on one card", ["1", "4", "--shards-per-device",
                                           "4", "--block-steps", "4"]))
 MESH_TOL = 1e-3  # the two meshes' f32 solutions, relative to max|x|
+# phases 3, 7, 10 and 12: the fused solve against the host-driven one.  The
+# same Newton count, Krylov counts within one of the host path's at each
+# Newton step (in float32 Givens rotations and lstsq may part by an ulp at
+# the stop threshold; the exact equality is pinned in float64 on the CPU),
+# iterates within FUSED_TOL of max|x|
+FUSED_TOL = 1e-4
+# phase 15: the year-operator example's defaults (40 x 50, 8760 steps,
+# chunks of 125 columns); its gates, relative: the operator's F and JVP
+# against B1's, F(X*) through B1 (the JAX test's bound)
+YEAR_OP = ("40", "50", "8760", "125")
+YEAR_OP_TOL = 1e-5
 # phase 11: B6 on 1 shard repeats B5's arithmetic; 4 shards of the card
 SWEEP_VS_B5_TOL = 1e-6
 GX1_SHARDS = 4
@@ -296,12 +329,14 @@ ROUGH_TOL = 5e-5
 # the kernels' ms, and the solves' seconds, of the designs before this
 # tree's (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
 # this run's: phases 8, 11 and 13 before the fused step, phases 6, 7, 9, 10
-# and 12 before B3's and B4's persistent launches, phases 2, 3 and 14 before
-# B1's and B1v1's table, phase 4 before B2's (ranges over earlier runs where
+# and 12 before B3's and B4's persistent launches, phase 14 before B1v1's
+# table, phase 4 before B2's, phase 2 before B1's channel map and phase 3's
+# host solve before the fused solves (ranges over earlier runs where
 # PERF.md gives them)
 EARLIER_MS = {
-    2: {"F_year": 125.65, "JVP_year": 95.45, "F_tenth": 12.46},
-    3: {"solve_seconds": 1.5055},
+    2: {"F_year": "16.89-16.97", "JVP_year": "16.89-16.97",
+        "F_tenth": "1.74-1.81"},
+    3: {"host solve_seconds": "0.771-0.775"},
     14: {"F_year": 156.85, "JVP_year": 152.04, "F_tenth": 15.47},
     4: {"init_iterate_year": 146.41, "init_iterate_tenth": 15.13},
     6: {"steady_year": 416.28},
@@ -323,8 +358,8 @@ EARLIER_MS = {
          "gx1_1shard_k1_year": 22002.58, "gx1_4shards_k2_year": 25851.77},
 }
 EARLIER_DESIGN = {8: "the fused step", 11: "the fused step",
-                  13: "the fused step", 2: "the table", 3: "the table",
-                  14: "the table", 4: "the table"}
+                  13: "the fused step", 2: "the channel map",
+                  3: "the fused solves", 14: "the table", 4: "the table"}
 
 
 def phase(num, title, **numbers):
@@ -693,8 +728,8 @@ def transport3d_kernel_phase(device):
 
 def transport3d_solve_phase(device):
     """phase 7: the gx3 spin-up as the JAX bench drives it
-    (ShardedTransport3dKernel + NewtonKrylovInCore); returns the kernel's
-    launches"""
+    (ShardedTransport3dKernel + NewtonKrylovInCore), host-driven and with
+    the fused GMRES; returns the host solve's kernel launches"""
     circ = synthetic.gen_circulation(*GX3)
     n_steps = max(GX3_MIN_STEPS, synthetic.stable_steps_per_year(circ))
     kernel = ShardedTransport3dKernel(circ, GX3_SPECS, n_steps, device=device,
@@ -702,51 +737,58 @@ def transport3d_solve_phase(device):
     if not kernel.use_kernel:
         raise SystemExit("chip_smoke: ShardedTransport3dKernel did not "
                          "dispatch to the kernel")
-    spent_f, spent_jvp, spent_pc = [0.0, 0], [0.0, 0], [0.0, 0]
-    kernel.comp_fcn = timed_hook(kernel.comp_fcn, spent_f)
-    kernel.jvp = timed_hook(kernel.jvp, spent_jvp)
-    kernel.precond_setup = timed_hook(kernel.precond_setup, spent_pc)
-    kernel.precond_apply = timed_hook(kernel.precond_apply, spent_pc)
-    solver = NewtonKrylovInCore(kernel, **GX3_SOLVER)
-    x0 = kernel.init_iterate()
-
-    earlier_times(7)
-    reset_counts()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    x, fcn, info = solver.solve(x0)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    launches = transport3d_cuda.transport3d_year_launches
-
-    rel = info["fcn_norm"] / info["x_norm"]
+    spent = {name: [0.0, 0] for name in ("f", "jvp", "pc")}
+    kernel.comp_fcn = timed_hook(kernel.comp_fcn, spent["f"])
+    kernel.jvp = timed_hook(kernel.jvp, spent["jvp"])
+    kernel.precond_setup = timed_hook(kernel.precond_setup, spent["pc"])
+    kernel.precond_apply = timed_hook(kernel.precond_apply, spent["pc"])
     check = ShardedTransport3dKernel(circ, GX3_SPECS, n_steps, device=device,
                                      dtype=torch.float64)
-    x64 = x.double()
-    rel64 = (check.norm(check.comp_fcn(x64)) / check.norm(x64)).max().item()
-    phase(7, f"gx3 solve ({n_steps} steps)",
-          newton_iterations=info["iterations"],
-          krylov_iterations=[int(k) for k in info["krylov_iterations"]],
-          seconds=seconds, f_seconds=spent_f[0], f_evals=spent_f[1],
-          jvp_seconds=spent_jvp[0], jvp_evals=spent_jvp[1],
-          precond_seconds=spent_pc[0], precond_calls=spent_pc[1],
-          max_rel_resid=float(rel.max()), f64_plain_rel_resid=rel64,
-          kernel_launches=launches)
-    against_earlier(7, {"solve_seconds": seconds})
-    if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
-        raise SystemExit("chip_smoke: non-finite values in the gx3 solution")
-    if not (rel < GX3_SOLVER["newton_rel_tol"]).all():
-        raise SystemExit(f"chip_smoke: gx3 residual {rel.max():.3e} >= "
-                         f"{GX3_SOLVER['newton_rel_tol']}")
-    if launches < spent_f[1] + spent_jvp[1]:
-        raise SystemExit(
-            f"chip_smoke: {launches} transport3d_year launches for "
-            f"{spent_f[1]} F evaluations and {spent_jvp[1]} JVPs"
-        )
-    if not rel64 < 1e-4:
-        raise SystemExit(f"chip_smoke: f64 gx3 residual at the solution "
-                         f"{rel64:.3e}")
-    return launches
+
+    earlier_times(7)
+    solves, host_launches = {}, 0
+    for route, jit_gmres in (("host", False), ("jit_gmres", True)):
+        for times in spent.values():
+            times[:] = [0.0, 0]
+        reset_counts()
+        x, fcn, info = solve_timed(kernel, jit_gmres=jit_gmres, **GX3_SOLVER)
+        launches = transport3d_cuda.transport3d_year_launches
+        rel = info["fcn_norm"] / info["x_norm"]
+        # F at the host solution by the float64 year (the fused one is
+        # held to the host one)
+        rel64 = 0.0
+        if route == "host":
+            x64 = x.double()
+            rel64 = (check.norm(check.comp_fcn(x64))
+                     / check.norm(x64)).max().item()
+        phase(7, f"gx3 solve ({n_steps} steps, {route})",
+              newton_iterations=info["iterations"],
+              krylov_iterations=[int(k) for k in info["krylov_iterations"]],
+              seconds=info["seconds"], f_seconds=spent["f"][0],
+              f_evals=spent["f"][1], jvp_seconds=spent["jvp"][0],
+              jvp_evals=spent["jvp"][1], precond_seconds=spent["pc"][0],
+              precond_calls=spent["pc"][1], max_rel_resid=float(rel.max()),
+              f64_plain_rel_resid=rel64, kernel_launches=launches)
+        if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
+            raise SystemExit(f"chip_smoke: non-finite values in the gx3 "
+                             f"solution ({route})")
+        if not (rel < GX3_SOLVER["newton_rel_tol"]).all():
+            raise SystemExit(f"chip_smoke: gx3 residual {rel.max():.3e} >= "
+                             f"{GX3_SOLVER['newton_rel_tol']} ({route})")
+        if launches < spent["f"][1] + spent["jvp"][1]:
+            raise SystemExit(
+                f"chip_smoke: {launches} transport3d_year launches for "
+                f"{spent['f'][1]} F evaluations and {spent['jvp'][1]} JVPs "
+                f"({route})")
+        if not rel64 < 1e-4:
+            raise SystemExit(f"chip_smoke: f64 gx3 residual at the solution "
+                             f"{rel64:.3e} ({route})")
+        solves[route] = (x, info)
+        if route == "host":
+            host_launches = launches
+    compare_solves(7, "gx3", solves["host"], solves["jit_gmres"])
+    against_earlier(7, {"solve_seconds": solves["host"][1]["seconds"]})
+    return host_launches
 
 
 def stream_bound(year, t_dim, n_cells, n_steps):
@@ -1132,9 +1174,9 @@ def sweep_kernel_phase(device):
 
 
 def irf3d_sharded_solve_phase(device):
-    """phase 12: the 3D spin-up through cli/irf3d_spinup.py on three meshes
-    of the one card; returns transport3d_year's launches (the 1-shard
-    solves)"""
+    """phase 12: the 3D spin-up through cli/irf3d_spinup.py (the fused
+    GMRES) on three meshes of the one card, then host-driven on the CLI's
+    kernels; returns transport3d_year's launches (the 1-shard solves)"""
     defaults = irf3d_spinup.parse_args([])
     grid = [str(defaults.nz), str(defaults.nlat), str(defaults.nlon)]
     circ = synthetic.gen_circulation(defaults.nz, defaults.nlat, defaults.nlon,
@@ -1177,6 +1219,19 @@ def irf3d_sharded_solve_phase(device):
                 raise SystemExit(
                     f"chip_smoke: 3D residual {float(rel.max()):.3e} (bound "
                     f"{tol}), f64 {rel64:.3e} (bound 1e-4) ({label}, {name})")
+            # the host-driven GMRES on the same kernel
+            x_h, _, info_h = solve_timed(kernel, **irf3d_spinup.SOLVER)
+            rel_h = info_h["fcn_norm"] / info_h["x_norm"]
+            phase(12, f"irf3d spin-up {label} ({name}, host GMRES)",
+                  newton_iterations=info_h["iterations"],
+                  krylov_iterations=[int(k) for k in
+                                     info_h["krylov_iterations"]],
+                  seconds=info_h["seconds"], max_rel_resid=float(rel_h.max()))
+            if not (rel_h < tol).all():
+                raise SystemExit(f"chip_smoke: host-GMRES 3D residual "
+                                 f"{float(rel_h.max()):.3e} ({label}, {name})")
+            compare_solves(12, f"irf3d {label} ({name})", (x_h, info_h),
+                           (x, info))
         if (count > 0) != (label == IRF3D_MESHES[0][0]):
             raise SystemExit(f"chip_smoke: {count} transport3d_year launches "
                              f"in the {label} solves")
@@ -1278,8 +1333,45 @@ def iage_kernel_phase(depth, ypos, device):
     return (worst_abs, *tenth_ms["F"]), table
 
 
+def solve_timed(kernel, **settings):
+    """(x, fcn, info) of NewtonKrylovInCore(kernel, **settings) from the
+    kernel's initial iterate; info["seconds"] its synchronised wall time"""
+    solver = NewtonKrylovInCore(kernel, **settings)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    x, fcn, info = solver.solve(kernel.init_iterate())
+    torch.cuda.synchronize()
+    info["seconds"] = time.perf_counter() - start
+    return x, fcn, info
+
+
+def compare_solves(num, label, host, fused):
+    """phase num's line comparing a fused solve with the host-driven one,
+    each (x, info); raises unless the Newton counts are equal, the Krylov
+    counts within one at each step and the iterates within FUSED_TOL"""
+    (x_h, info_h), (x_f, info_f) = host, fused
+    kry_h = [int(k) for k in info_h["krylov_iterations"]]
+    kry_f = [int(k) for k in info_f["krylov_iterations"]]
+    diff = rel_err(x_f, x_h, float(x_h.abs().max()))
+    phase(num, f"{label}: fused vs host", newton=(info_f["iterations"],
+                                                  info_h["iterations"]),
+          krylov=(kry_f, kry_h), rel_diff=diff, tol=FUSED_TOL,
+          seconds=(info_f["seconds"], info_h["seconds"]))
+    if info_f["iterations"] != info_h["iterations"]:
+        raise SystemExit(f"chip_smoke: {label}: {info_f['iterations']} fused "
+                         f"Newton iterations, {info_h['iterations']} host")
+    if any(abs(a - b) > 1 for a, b in zip(kry_f, kry_h)):
+        raise SystemExit(f"chip_smoke: {label}: fused Krylov counts {kry_f} "
+                         f"against the host path's {kry_h}")
+    if not diff <= FUSED_TOL:
+        raise SystemExit(f"chip_smoke: {label}: the fused solution is {diff:.3e}"
+                         f" from the host path's (bound {FUSED_TOL})")
+
+
 def iage_solve_phase(depth, ypos, device):
-    """phase 3: the iage solve through the CLI entry point; returns the
+    """phase 3: the iage solve through the CLI entry point (host-driven, as
+    the JAX example's), then on the CLI's kernel host-driven again, with the
+    fused GMRES and with the fused Newton solve; returns the CLI solve's
     launches of the year kernel and of the table kernel"""
     earlier_times(3)
     reset_counts()
@@ -1288,41 +1380,57 @@ def iage_solve_phase(depth, ypos, device):
         "--newton-rel-tol", str(SOLVE_TOL),
     ])
     torch.cuda.synchronize()
-    launches = imex_cuda.iage_year_launches
-    table_launches = imex_cuda.iage_table_launches
-    rel = info["fcn_norm"] / info["x_norm"]
-    krylov = [int(k) for k in info["krylov_iterations"]]
-    # one F per Newton step's Armijo trial and fixed-point update, the
-    # initial F, and one JVP per Krylov iteration: a lower bound
-    min_launches = 1 + sum(k + 2 for k in krylov)
     if not kernel.use_kernel:
         raise SystemExit("chip_smoke: the solve did not dispatch to the kernel")
-    if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
-        raise SystemExit("chip_smoke: non-finite values in the solution")
-    if not (rel < SOLVE_TOL).all():
-        raise SystemExit(f"chip_smoke: residual {rel.max():.3e} >= {SOLVE_TOL}")
-    if launches < min_launches:
-        raise SystemExit(
-            f"chip_smoke: {launches} kernel launches, expected >= {min_launches}"
-        )
-    if table_launches != 1:
-        raise SystemExit(f"chip_smoke: {table_launches} table launches in the "
-                         "solve, expected one for its F and JVP years")
+    solves, counts = {}, {}
+    settings = dict(newton_rel_tol=SOLVE_TOL, **incore_spinup.SOLVER)
+    for route, flags in (("CLI", None), ("host", {}),
+                         ("jit_gmres", {"jit_gmres": True}),
+                         ("jit_newton", {"jit_newton": True})):
+        if flags is not None:
+            reset_counts()
+            x, fcn, info = solve_timed(kernel, **settings, **flags)
+        launches = imex_cuda.iage_year_launches
+        table_launches = imex_cuda.iage_table_launches
+        rel = info["fcn_norm"] / info["x_norm"]
+        krylov = [int(k) for k in info["krylov_iterations"]]
+        # one F per Newton step's Armijo trial and fixed-point update, the
+        # initial F, and one JVP per Krylov iteration: a lower bound
+        min_launches = 1 + sum(k + 2 for k in krylov)
+        if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
+            raise SystemExit(f"chip_smoke: non-finite values in the {route} "
+                             "solution")
+        if not (rel < SOLVE_TOL).all():
+            raise SystemExit(f"chip_smoke: {route} residual {rel.max():.3e} "
+                             f">= {SOLVE_TOL}")
+        if launches < min_launches:
+            raise SystemExit(f"chip_smoke: {launches} kernel launches in the "
+                             f"{route} solve, expected >= {min_launches}")
+        # the CLI's kernel builds one table for its F and JVP years; the
+        # later solves on that kernel build none
+        if table_launches != (1 if route == "CLI" else 0):
+            raise SystemExit(f"chip_smoke: {table_launches} table launches in "
+                             f"the {route} solve")
+        phase(3, f"solve ({route})", newton_iterations=info["iterations"],
+              krylov_iterations=krylov, seconds=info["seconds"],
+              max_rel_resid=float(rel.max()), kernel_launches=launches,
+              table_launches=table_launches,
+              max_ideal_age_years=float(x.max()))
+        solves[route] = (x, info)
+        counts[route] = (launches, table_launches)
+    phase(3, "table", build_ms=kernel.table.build_ms(),
+          bytes=kernel.table.nbytes)
+    for route in ("jit_gmres", "jit_newton"):
+        compare_solves(3, f"iage {route}", solves["host"], solves[route])
     check = IageKernel(depth, ypos, incore_spinup.MODELINFO, device=device,
                        dtype=torch.float64, n_steps=N_STEPS)
-    x64 = x.double()
+    x64 = solves["CLI"][0].double()
     rel64 = (check.norm(check.comp_fcn(x64)) / check.norm(x64)).max().item()
-    phase(3, "solve", newton_iterations=info["iterations"],
-          krylov_iterations=krylov, seconds=info["seconds"],
-          max_rel_resid=float(rel.max()), f64_plain_rel_resid=rel64,
-          kernel_launches=launches, table_launches=table_launches,
-          table_build_ms=kernel.table.build_ms(),
-          table_bytes=kernel.table.nbytes,
-          max_ideal_age_years=float(x.max()))
+    phase(3, "CLI solution by the f64 plain year", f64_plain_rel_resid=rel64)
     if not rel64 < 1e-4:
         raise SystemExit(f"chip_smoke: f64 residual at the solution {rel64:.3e}")
-    against_earlier(3, {"solve_seconds": info["seconds"]})
-    return launches, table_launches
+    against_earlier(3, {"host solve_seconds": solves["CLI"][1]["seconds"]})
+    return counts["CLI"]
 
 
 def stable_step_count(ypos, base_steps):
@@ -1422,9 +1530,11 @@ def iage_block_phase(device):
 
 
 def sharded_solve_phase(device):
-    """phase 10: the sharded spin-up through cli/sharded_spinup.py on two
-    meshes; returns iage_block's launches over both solves"""
+    """phase 10: the sharded spin-up through cli/sharded_spinup.py (the
+    fused GMRES) on two meshes, then host-driven on the CLI's kernel;
+    returns iage_block's launches over the CLI's solves"""
     solutions, launches, new = [], 0, {}
+    tol = sharded_spinup.SOLVER["newton_rel_tol"]
     earlier_times(10)
     for label, argv in SHARDED_MESHES:
         reset_counts()
@@ -1452,7 +1562,6 @@ def sharded_solve_phase(device):
               f64_plain_rel_resid=rel64, kernel_launches=count,
               launches_per_year=count / max(years, 1),
               host_halo_copies_per_year=copies / max(years, 1))
-        tol = sharded_spinup.SOLVER["newton_rel_tol"]
         if not (torch.isfinite(x).all() and torch.isfinite(fcn).all()):
             raise SystemExit(f"chip_smoke: non-finite values in the sharded "
                              f"solution {label}")
@@ -1462,6 +1571,26 @@ def sharded_solve_phase(device):
         if count < years or count == 0:
             raise SystemExit(f"chip_smoke: {count} iage_block launches for "
                              f"{years} years {label}")
+        # the host-driven GMRES on the same kernel
+        reset_counts()
+        x_h, fcn_h, info_h = solve_timed(kernel, **sharded_spinup.SOLVER)
+        count_h = imex_block_cuda.iage_block_launches
+        rel_h = info_h["fcn_norm"] / info_h["x_norm"]
+        phase(10, f"sharded spin-up {label} (host GMRES)",
+              newton_iterations=info_h["iterations"],
+              krylov_iterations=[int(k) for k in info_h["krylov_iterations"]],
+              seconds=info_h["seconds"], max_rel_resid=float(rel_h.max()),
+              kernel_launches=count_h)
+        if not ((rel_h < tol).all() and count_h > 0):
+            raise SystemExit(f"chip_smoke: host-GMRES sharded residual "
+                             f"{rel_h.max():.3e}, {count_h} launches {label}")
+        # the CLI's solve was the process's first on this kernel: time the
+        # fused GMRES again, warm, beside the (warm) host one
+        x_w, _, info_w = solve_timed(kernel, jit_gmres=True,
+                                     **sharded_spinup.SOLVER)
+        compare_solves(10, f"sharded {label}", (x_h, info_h), (x, info))
+        compare_solves(10, f"sharded {label}, warm", (x_h, info_h),
+                       (x_w, info_w))
         solutions.append(x)
     diff = rel_err(solutions[1], solutions[0],
                    float(solutions[0].abs().max()))
@@ -1713,11 +1842,115 @@ def iage_v1_phase(depth, ypos, device):
     return (launches, worst_abs, *tenth_ms["F"])
 
 
+def year_operator_phase(device):
+    """phase 15: the dense year operator through
+    cli/year_operator_spinup.py at the example's defaults: the probe
+    through B1 under the channel map (2 x 125 channels a launch on the
+    kernel's one T = 2 table), the direct solve and the spectrum; the
+    operator's F and JVP against B1's, and F(X*) through B1"""
+    reset_counts()
+    kernel, op, x_star, info = year_operator_spinup.main(
+        [*YEAR_OP, "--device", "cuda"])
+    torch.cuda.synchronize()
+    years = imex_cuda.iage_year_launches
+    tables = imex_cuda.iage_table_launches
+    if not kernel.use_kernel:
+        raise SystemExit("chip_smoke: the probe did not dispatch to the kernel")
+    n = kernel.nz * kernel.ny
+    chunks = -(-n // int(YEAR_OP[3]))
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(0.0, 2.0, (2, kernel.nz, kernel.ny)),
+                        dtype=torch.float32, device=device)
+    v = torch.as_tensor(rng.standard_normal((2, kernel.nz, kernel.ny)),
+                        dtype=torch.float32, device=device)
+    errs = {}
+    for name, ours, ref in (("fcn", op.fcn(x), kernel.comp_fcn(x)),
+                            ("jvp", op.jvp(v), kernel.jvp(x, None, v))):
+        errs[name] = rel_err(ours, ref, float(ref.abs().max()))
+    resid = info["resid"] / float(x_star.abs().max())
+    map_32, map_64, floor_64, map_scale, map_ms, map_plain_ms = \
+        probe_chunk_check(kernel, device)
+    phase(15, "year operator (40x50x8760, chunks of 125, through B1)",
+          probe_seconds=info["probe_seconds"],
+          table_bytes=info["table_bytes"], probe_launches=chunks,
+          iage_year_launches=years, table_launches=tables,
+          solve_seconds=info["solve_seconds"],
+          spectrum_seconds=info["spectrum_seconds"], rel_err=errs,
+          f_at_x_star_rel=resid, tol=YEAR_OP_TOL,
+          probe_chunk_vs_f32_tenth=map_32, probe_chunk_vs_f64_tenth=map_64,
+          plain_f32_vs_f64_tenth=floor_64, probe_chunk_max_abs_y=map_scale,
+          probe_chunk_ms_tenth=map_ms,
+          plain_f32_ms_tenth=map_plain_ms,
+          leading_eigvals=[float(abs(e)) for e in info["eigvals"][:, 0]])
+    if not (torch.isfinite(op.b_mats).all() and torch.isfinite(x_star).all()):
+        raise SystemExit("chip_smoke: non-finite values in the year operator")
+    if tables != 1:
+        raise SystemExit(f"chip_smoke: {tables} table launches for the probe, "
+                         "expected the kernel's one")
+    # the probe's chunks, the constant response and F(X*)
+    if years != chunks + 2:
+        raise SystemExit(f"chip_smoke: {years} iage_year launches, expected "
+                         f"{chunks + 2}")
+    if not (max(errs.values()) < YEAR_OP_TOL and resid < YEAR_OP_TOL):
+        raise SystemExit(f"chip_smoke: the year operator: {errs}, F(X*) "
+                         f"{resid:.3e} (bound {YEAR_OP_TOL})")
+    # a unit column decays to a few hundredths of itself in a tenth of the
+    # year, so, relative to the output's max, float32 rounding alone puts
+    # the plain f32 year farther from f64 than phase 2's 5e-5: B1 under
+    # the map must lie no farther from f64 than it
+    if not map_64 <= floor_64:
+        raise SystemExit(f"chip_smoke: B1 under the probe's map is "
+                         f"{map_64:.3e} from the plain f64 year, farther than "
+                         f"the plain f32 year's {floor_64:.3e}")
+    return years
+
+
+def probe_chunk_check(kernel, device):
+    """B1 on one probe launch's channels (the first chunk's unit columns of
+    both tracers, channels mapped 125 to each of the two slots) against the
+    plain f32 and f64 years over the first tenth, on the tenth's T = 2
+    table as the probe shares the year's; returns (B1 from f32 relative to
+    its max|y|, B1 from f64 and f32 from f64 relative to f64's, f64's
+    max|y|, kernel ms, plain f32 ms)"""
+    chunk, nz, ny = int(YEAR_OP[3]), kernel.nz, kernel.ny
+    diag = torch.as_tensor(kernel._vert_diag, dtype=torch.float64)
+    channel_diag = diag.repeat_interleave(chunk, dim=0)
+    args = tenth((kernel.grid, channel_diag, np.zeros((2 * chunk, 1, 1)),
+                  (0.0, kernel.year), kernel.n_steps))
+    table = imex_cuda.build_iage_table(kernel.grid, diag, *args[-2:],
+                                       device=device)
+    slot_map = table.check(
+        imex_cuda._table_key(kernel.grid, channel_diag), (2 * chunk, nz, ny),
+        args[-1], *imex_cuda._time_step(*args[-2:]), device)
+    if table.shape[0] != 2 or slot_map.tolist() != [0] * chunk + [1] * chunk:
+        raise SystemExit(f"chip_smoke: the probe's map is not 125 channels "
+                         f"to each of two slots: {slot_map.tolist()}")
+    y0 = torch.zeros((2, chunk, nz * ny), dtype=torch.float32, device=device)
+    cols = torch.arange(chunk, device=device)
+    y0[:, cols, cols] = 1.0
+    y0 = y0.reshape(2 * chunk, nz, ny)
+    y_k, ms_k = timed(imex_cuda.build_iage_year(*args, device=device,
+                                                table=table), y0)
+    ref, ms_p = timed(imex_cuda.build_iage_year_plain(*args), y0)
+    grid64 = physics.make_grid(kernel.depth, kernel.ypos,
+                               incore_spinup.MODELINFO, device=device,
+                               dtype=torch.float64)
+    y_64, _ = timed(imex_cuda.build_iage_year_plain(grid64, *args[1:]),
+                    y0.double())
+    if not torch.isfinite(y_k).all():
+        raise SystemExit("chip_smoke: non-finite values from B1 under the "
+                         "probe's map")
+    scale_64 = float(y_64.abs().max())
+    return (rel_err(y_k, ref, float(ref.abs().max())),
+            rel_err(y_k, y_64, scale_64), rel_err(ref, y_64, scale_64),
+            scale_64, ms_k, ms_p)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(15),
-                        default=list(range(15)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(16),
+                        default=list(range(16)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -1770,6 +2003,8 @@ def main(argv=None):
         13: lambda: block3d_kernel_phase(device),
         # 14: the iage year's PCR variant
         14: lambda: iage_v1_phase(depth, ypos, device),
+        # 15: the dense year operator probed through the iage kernel
+        15: lambda: year_operator_phase(device),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -1778,7 +2013,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(15)):
+    if phases != set(range(16)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0

@@ -24,6 +24,9 @@ from ..models.py_driver_2d.incore import IageKernel
 from ..ops.compute import resolve_device
 
 MODELINFO = {"max_abs_vvel": "0.1", "horiz_mix_coeff": "1000.0"}
+# the example's solver settings besides newton_rel_tol; the solve is
+# host-driven, as the JAX example's
+SOLVER = dict(krylov_rel_tol=1e-2, newton_max_iter=8)
 
 
 def build_axes(nz, ny):
@@ -69,10 +72,8 @@ def main(argv=None):
         depth, ypos, MODELINFO, device=device, dtype=torch.float32,
         n_steps=args.n_steps,
     )
-    solver = NewtonKrylovInCore(
-        kernel, newton_rel_tol=args.newton_rel_tol, krylov_rel_tol=1e-2,
-        newton_max_iter=8,
-    )
+    solver = NewtonKrylovInCore(kernel, newton_rel_tol=args.newton_rel_tol,
+                                **SOLVER)
 
     start = time.time()
     x, fcn, info = solver.solve(kernel.init_iterate())

@@ -6,8 +6,10 @@ Port of examples/irf3d_spinup.py.  A family of tracer modules (a decaying
 dye and an ideal-age tracer), then the gas-exchange-coupled abiotic
 DIC+DIC14 pair, ride a synthetic gyre circulation (seasonal with `months`
 > 0) and solve to their cyclostationary state: the IMEX year, exact
-linear JVPs, host-driven left-preconditioned GMRES and the column-local
-PCR vertical preconditioner.
+linear JVPs, the fused left-preconditioned GMRES (jit_gmres, as the JAX
+example runs both solves: basis, coefficients and least squares on the
+device, one stop flag read an Arnoldi step) and the column-local PCR
+vertical preconditioner.
 
     python -m newton_krylov_ooc_tpu_torch.cli.irf3d_spinup \\
         [nz] [nlat] [nlon] [shards] [months] [--device cuda|cpu] \\
@@ -20,8 +22,7 @@ per-step sharded year (parallel/sharded_transport3d.py, plain PyTorch, as
 the JAX kernel runs its shard_map year).  A mesh of N shards needs N /
 shards-per-device cards: `4 --shards-per-device 4` puts four shards on one
 card; on the CPU every shard lies on the one CPU device.  The solver
-settings are the JAX example's, without its fused GMRES (jit_gmres,
-ROADMAP A1.7): the host-driven GMRES gives the same iterates.
+settings are the JAX example's.
 
     python -m newton_krylov_ooc_tpu_torch.cli.irf3d_spinup 4 8 6 2x2 0 \\
         --device cpu
@@ -109,7 +110,7 @@ def build_mesh(shards, device, shards_per_device=1):
 
 
 def _solve(kernel, device):
-    solver = NewtonKrylovInCore(kernel, **SOLVER)
+    solver = NewtonKrylovInCore(kernel, jit_gmres=True, **SOLVER)
     start = time.time()
     x, fcn, info = solver.solve(kernel.init_iterate())
     if device.type == "cuda":

@@ -6,9 +6,10 @@ over the mesh's 'module' axis, the ypos grid over 'space'; the year runs in
 blocks of --block-steps steps on every shard through kernel B3
 (ops/imex_block_cuda.py, float32), with halo columns exchanged between
 blocks.  --plain-year runs the per-step sharded year in float64 instead.
-The solve is NewtonKrylovInCore's host-driven GMRES (the JAX example's
-jit_gmres is ROADMAP A1.7; the JAX tests pin fused and host iterates
-equal).  F and JVP seconds are timed, synchronised, and reported.
+The solve is NewtonKrylovInCore with the fused GMRES (jit_gmres, as the
+JAX example runs it): the Krylov basis, coefficients and least squares stay
+on the device, one stop flag read an Arnoldi step.  F and JVP seconds are
+timed, synchronised, and reported.
 
     python -m newton_krylov_ooc_tpu_torch.cli.sharded_spinup \
         [n_module] [n_space] [ny] [n_steps] [--device cuda|cpu] \
@@ -108,7 +109,7 @@ def main(argv=None):
         f"{args.ny}); {args.n_steps} steps/year; {year}"
     )
 
-    solver = NewtonKrylovInCore(kernel, **SOLVER)
+    solver = NewtonKrylovInCore(kernel, jit_gmres=True, **SOLVER)
     start = time.perf_counter()
     x, fcn, info = solver.solve(kernel.init_iterate())
     _sync(device)

@@ -13,8 +13,12 @@ traffic is the per-(module, region) convergence scalars.
   * npz checkpoints (`incore_state.npz`, keys `x` and `iteration`) in the
     JAX package's format, so a JAX in-core checkpoint resumes here.
 
-The fused variants of the JAX solver -- jit_gmres, jit_newton and the orbax
-checkpoint backend -- are not ported yet and raise NotImplementedError.
+The fused variants of the JAX solver keep the solver's state on the
+device too: jit_gmres (ops/gmres.py) runs the Krylov iteration with its
+coefficients and Givens least squares on the device, reading one stop flag
+an Arnoldi step; jit_newton (ops/newton_jit.py) does the same for the
+Newton loop, the limiter and the Armijo backtracking.  The orbax checkpoint
+backend is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,12 +52,6 @@ class NewtonKrylovInCore:
         jit_gmres=False,
         jit_newton=False,
     ):
-        if jit_gmres or jit_newton:
-            raise NotImplementedError(
-                "jit_gmres/jit_newton (the fused GMRES and Newton solves of "
-                "ops/gmres.py and ops/newton_jit.py) are ROADMAP item A1.7, "
-                "not ported yet; use the host-driven solve"
-            )
         self.kernel = kernel
         self.newton_rel_tol = newton_rel_tol
         self.krylov_rel_tol = krylov_rel_tol
@@ -64,6 +62,39 @@ class NewtonKrylovInCore:
         self.armijo_alpha = armijo_alpha
         self.armijo_max_ind = armijo_max_ind
         self.stats = []
+        # jit_gmres: the Krylov iteration with its basis, coefficients and
+        # least squares on the device (ops/gmres.py); the same
+        # per-(module, region) least squares as the host loop, so the
+        # iterates agree to rounding.  Needs kernel.region_broadcast to take
+        # a device tensor.
+        self._jit_gmres = None
+        if jit_gmres:
+            from ..ops.gmres import build_gmres
+
+            self._jit_gmres = build_gmres(
+                kernel.jvp, kernel.precond_apply, kernel.dot,
+                kernel.region_broadcast, krylov_max_dim, krylov_rel_tol,
+                linearize_fn=getattr(kernel, "linearize_target", None))
+        # jit_newton: the whole solve -- Newton loop, limiter, Armijo
+        # backtracking, fixed-point updates and the inner GMRES -- with its
+        # state on the device (ops/newton_jit.py).  A bounded kernel's
+        # limiter needs its traced twin (limiter_scalef_jit); without one the
+        # limiter is a no-op, as the linear kernels' apply_limiter is.
+        self._jit_solve = None
+        if jit_newton:
+            from ..ops.newton_jit import build_newton_krylov
+
+            self._jit_solve = build_newton_krylov(
+                kernel,
+                newton_rel_tol=newton_rel_tol,
+                krylov_rel_tol=krylov_rel_tol,
+                newton_max_iter=newton_max_iter,
+                newton_min_iter=newton_min_iter,
+                krylov_max_dim=krylov_max_dim,
+                post_newton_fp_iter=post_newton_fp_iter,
+                armijo_alpha=armijo_alpha,
+                armijo_max_ind=armijo_max_ind,
+            )
 
     def solve(self, x0, checkpoint_dir=None, checkpoint_backend="npz"):
         """run Newton to convergence; returns (x, fcn, info)
@@ -71,6 +102,13 @@ class NewtonKrylovInCore:
         checkpoint_dir: snapshot the solver state (iterate + iteration) after
         every Newton step and resume from the latest snapshot on restart
         """
+        if self._jit_solve is not None:
+            if checkpoint_dir is not None:
+                raise ValueError(
+                    "jit_newton keeps the whole solve's state on the device; "
+                    "per-step checkpointing needs the host-driven path"
+                )
+            return self._solve_fused(x0)
         if checkpoint_backend == "orbax":
             raise NotImplementedError(
                 "checkpoint_backend='orbax' (sharded async checkpoints, "
@@ -139,6 +177,48 @@ class NewtonKrylovInCore:
         }
         return x, fcn, info
 
+    def _solve_fused(self, x0):
+        """the solve of ops/newton_jit.py; the host unpacks the stats and
+        raises the host path's errors"""
+        logger = logging.getLogger(__name__)
+        x, fcn, dev_info = self._jit_solve(x0)
+        iterations = int(dev_info["iterations"])
+        fn_hist = _host(dev_info["fcn_norm_hist"])
+        xn_hist = _host(dev_info["x_norm_hist"])
+        armijo_ok = dev_info["armijo_ok"].numpy()[:iterations]
+        # on an Armijo failure at step k the host path records iterates
+        # 0..k and fails; the stats stop there too
+        armijo_failed = not armijo_ok.all()
+        n_good = int(np.argmax(~armijo_ok)) if armijo_failed else iterations
+        for it in range(n_good + 1):
+            self.stats.append(
+                {
+                    "iteration": it,
+                    "fcn_norm": fn_hist[it].copy(),
+                    "x_norm": xn_hist[it].copy(),
+                }
+            )
+            logger.info(
+                "newton iteration=%d max rel resid=%e",
+                it,
+                float((fn_hist[it] / np.maximum(xn_hist[it], 1e-300)).max()),
+            )
+        if armijo_failed:
+            raise RuntimeError("Armijo_ind exceeds limit")
+        if not dev_info["converged"].all():
+            raise RuntimeError("number of maximum Newton iterations exceeded")
+        info = {
+            "iterations": iterations,
+            "fcn_norm": fn_hist[iterations],
+            "x_norm": xn_hist[iterations],
+            "stats": self.stats,
+            "krylov_iterations": dev_info["krylov_iterations"].numpy()[
+                :iterations].astype(int),
+            "armijo_factor": _host(dev_info["armijo_factor"])[:iterations],
+            "limiter_scalef": _host(dev_info["limiter_scalef"])[:iterations],
+        }
+        return x, fcn, info
+
     @staticmethod
     def _save_checkpoint(checkpoint_dir, x, iteration):
         """atomic snapshot of the solver state"""
@@ -180,6 +260,11 @@ class NewtonKrylovInCore:
         returns (increment, Krylov iterations)"""
         kernel = self.kernel
         precond_data = kernel.precond_setup(x)
+        if self._jit_gmres is not None:
+            increment, its, _resid, _beta = self._jit_gmres(
+                x, fcn, precond_data
+            )
+            return increment, its
 
         r0 = kernel.precond_apply(precond_data, fcn)
         beta = _host(kernel.norm(r0))

@@ -37,6 +37,16 @@
 //     its channel) into one of two shared-memory slots with cp.async.bulk a
 //     step ahead of its use, issued by a producer warp; an mbarrier a slot
 //     says when it has landed.
+//   * The channel map: the table holds one factor slot per distinct
+//     implicit diagonal, and the packed constants map each channel to its
+//     slot.  Block ch (a channel) reads its state, diagonal and source at
+//     ch and streams the factors of slot map[ch].  IageKernel's F and JVP
+//     years map their two channels to two slots; the year-operator probe
+//     runs T x chunk channels (250 at 40 x 50 with chunks of 125) on the
+//     same two slots, so its table stays the T = 2 table (489 MB at 8760
+//     steps) where one slot a channel would take 52.6 GB.  Blocks of one
+//     tracer then read the same table slice, mostly from L2.  B1v1 streams
+//     kv alone, so the map only sets its table's stride.
 //   * Lanes own cells: a group of G lanes (a power of two, G <= 32, so a
 //     group never straddles a warp) owns column j, lane l its M levels
 //     l M .. l M + M - 1, in registers: the state, its Kahan compensation,
@@ -64,7 +74,9 @@
 // The time index is an integer; t = t0 + i dt is recomputed, never summed.
 // Shared memory, counted by smem_floats alone (the wrapper checks it
 // against the card's opt-in limit): two slots, and y and the stage state
-// (nz, ny).
+// (nz, ny).  The packed constants: the header, the grid fields, then per
+// channel the source (T), the implicit diagonal (T, nz, ny) and the factor
+// slot (T, integers held as floats).
 
 #include "imex_common.cuh"
 #include "imex_table.cuh"
@@ -142,6 +154,15 @@ __global__ void __launch_bounds__(kTableThreads)
       kv_lo = kv_up;
     }
   }
+}
+
+// the table slot of channel ch's factors: the channel map, the last T of
+// the packed constants.  Read by the producer thread where it fetches, so
+// that no column thread keeps it live across the year.
+__device__ __forceinline__ int channel_slot(const float* fields, int ch,
+                                            int t_dim, int nz, int ny) {
+  return (int)fields[kHeader + grid_floats(nz, ny) + t_dim +
+                     (long)t_dim * nz * ny + ch];
 }
 
 // -- a column's lanes ---------------------------------------------------
@@ -395,8 +416,9 @@ template <int M, bool kPcr>
 __global__ void __launch_bounds__(kThreads, 1)
     iage_year_kernel(const float* __restrict__ y0, float* __restrict__ out,
                      const float* __restrict__ fields,
-                     const float* __restrict__ table, int t_dim, int nz,
-                     int ny, int n_steps, float t0, float dt) {
+                     const float* __restrict__ table, int t_dim,
+                     int n_slots, int nz, int ny, int n_steps, float t0,
+                     float dt) {
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) unsigned long long slot_bar[2];
   const int n = nz * ny;
@@ -460,8 +482,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   if (threadIdx.x == producer) {
-    fetch<kPcr>(smem, slot_len, slot_bar, table, 0, ch, t_dim, nz, ny);
-    fetch<kPcr>(smem, slot_len, slot_bar, table, 1, ch, t_dim, nz, ny);
+    const int slot = channel_slot(fields, ch, t_dim, nz, ny);
+    fetch<kPcr>(smem, slot_len, slot_bar, table, 0, slot, n_slots, nz, ny);
+    fetch<kPcr>(smem, slot_len, slot_bar, table, 1, slot, n_slots, nz, ny);
   }
 
   const float half_dt = 0.5f * dt;
@@ -478,8 +501,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // solve step + 2 into the slot that solve step left (read before the
     // barrier that ended the last step)
     if (threadIdx.x == producer && step + 2 <= n_steps)
-      fetch<kPcr>(smem, slot_len, slot_bar, table, step + 2, ch, t_dim, nz,
-                  ny);
+      fetch<kPcr>(smem, slot_len, slot_bar, table, step + 2,
+                  channel_slot(fields, ch, t_dim, nz, ny), n_slots, nz, ny);
     // Heun stage 1: f1 = tend(y), the stage state ys = y + dt f1
     if (columns) {
       tendency(y, y_sh, st, src, f1, k0, jc, nz, ny, lanes);
@@ -528,19 +551,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
-// length of the packed constant buffer the wrapper builds
+// length of the packed constant buffer the wrapper builds: the header, the
+// grid, and per channel the source, the diagonal and the factor slot
 long iage_year_fields_len(int t_dim, int nz, int ny) {
-  return kHeader + grid_floats(nz, ny) + t_dim + (long)t_dim * nz * ny;
+  return kHeader + grid_floats(nz, ny) + 2L * t_dim + (long)t_dim * nz * ny;
 }
 
-// the table's layout: floats of one solve's kv part, of one channel's
-// factors, of one solve, and of the whole table (n_steps + 1 solves)
+// the table's layout: floats of one solve's kv part, of one slot's
+// factors, of one solve, and of the whole table (n_steps + 1 solves) of
+// n_slots slots
 long iage_year_kv_floats(int nz, int ny) { return kv_floats(nz, ny); }
 
 long iage_year_factor_floats(int nz, int ny) { return factor_floats(nz, ny); }
 
-long iage_year_table_floats(int t_dim, int nz, int ny, int n_steps) {
-  return (n_steps + 1L) * solve_floats(t_dim, nz, ny);
+long iage_year_table_floats(int n_slots, int nz, int ny, int n_steps) {
+  return (n_steps + 1L) * solve_floats(n_slots, nz, ny);
 }
 
 long iage_year_smem_bytes(int nz, int ny) {
@@ -571,6 +596,7 @@ const char* iage_year_error_string(int err) {
 }
 
 // the table of a year's n_steps + 1 CN solves, from the packed constants
+// of its t_dim slots (one channel a slot)
 int iage_year_table_launch(const float* fields, float* table, int t_dim,
                            int nz, int ny, int n_steps, float t0, float dt,
                            void* stream) {
@@ -588,8 +614,8 @@ namespace {
 
 template <int M, bool kPcr>
 int launch_levels(const float* y0, float* out, const float* fields,
-                  const float* table, int t_dim, int nz, int ny, int n_steps,
-                  float t0, float dt, void* stream) {
+                  const float* table, int t_dim, int n_slots, int nz, int ny,
+                  int n_steps, float t0, float dt, void* stream) {
   const long smem = smem_floats<kPcr>(nz, ny) * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       iage_year_kernel<M, kPcr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -597,19 +623,19 @@ int launch_levels(const float* y0, float* out, const float* fields,
   if (err != cudaSuccess) return (int)err;
   iage_year_kernel<M, kPcr><<<t_dim, block_threads(ny, kThreads), smem,
                               (cudaStream_t)stream>>>(
-      y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt);
+      y0, out, fields, table, t_dim, n_slots, nz, ny, n_steps, t0, dt);
   return (int)cudaGetLastError();
 }
 
 template <bool kPcr>
 int launch(const float* y0, float* out, const float* fields,
-           const float* table, int t_dim, int nz, int ny, int n_steps,
-           float t0, float dt, void* stream) {
+           const float* table, int t_dim, int n_slots, int nz, int ny,
+           int n_steps, float t0, float dt, void* stream) {
   switch (iage_year_levels(nz, ny)) {
 #define IAGE_LEVELS(M)                                                       \
   case M:                                                                    \
-    return launch_levels<M, kPcr>(y0, out, fields, table, t_dim, nz, ny,    \
-                                  n_steps, t0, dt, stream);
+    return launch_levels<M, kPcr>(y0, out, fields, table, t_dim, n_slots,  \
+                                  nz, ny, n_steps, t0, dt, stream);
     IAGE_LEVELS(1)
     IAGE_LEVELS(2)
     IAGE_LEVELS(3)
@@ -628,21 +654,23 @@ int launch(const float* y0, float* out, const float* fields,
 
 extern "C" {
 
-// launch on `stream` (a cudaStream_t) of the current device; returns the
-// cudaGetLastError() after the launch (0 on success)
+// launch on `stream` (a cudaStream_t) of the current device: t_dim
+// channels on a table of n_slots slots; returns the cudaGetLastError() after
+// the launch (0 on success)
 int iage_year_launch(const float* y0, float* out, const float* fields,
-                     const float* table, int t_dim, int nz, int ny,
-                     int n_steps, float t0, float dt, void* stream) {
-  return launch<false>(y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt,
-                       stream);
+                     const float* table, int t_dim, int n_slots, int nz,
+                     int ny, int n_steps, float t0, float dt, void* stream) {
+  return launch<false>(y0, out, fields, table, t_dim, n_slots, nz, ny,
+                       n_steps, t0, dt, stream);
 }
 
 // B1v1: the same year, its CN solves by PCR
 int iage_year_v1_launch(const float* y0, float* out, const float* fields,
-                        const float* table, int t_dim, int nz, int ny,
-                        int n_steps, float t0, float dt, void* stream) {
-  return launch<true>(y0, out, fields, table, t_dim, nz, ny, n_steps, t0, dt,
-                      stream);
+                        const float* table, int t_dim, int n_slots, int nz,
+                        int ny, int n_steps, float t0, float dt,
+                        void* stream) {
+  return launch<true>(y0, out, fields, table, t_dim, n_slots, nz, ny, n_steps,
+                      t0, dt, stream);
 }
 
 }  // extern "C"

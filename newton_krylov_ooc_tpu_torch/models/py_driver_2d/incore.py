@@ -8,7 +8,9 @@ _InCoreKernel holds that region plumbing and the solver hooks both share.
 
 IageKernel: the model is linear, so the exact Jacobian-vector product is
 the year with the aging source zeroed, J v = year_src0(v) - v, on every
-path.  The preconditioner is the implicit-Euler-product operator.
+path.  The preconditioner is the implicit-Euler-product operator.  Its
+dense year operator (build_year_operator, ops/year_operator.py) is probed
+through the same year: on the kernel, B1 on the F and JVP years' table.
 
 PhosphorusKernel: nonlinear (Michaelis-Menten uptake), so its JVP is
 forward-mode AD (torch.func.jvp) through the plain year, on every device --
@@ -44,6 +46,7 @@ from ...ops.imex_cuda import (
     build_phosphorus_year,
     build_phosphorus_year_plain,
 )
+from ...ops.year_operator import probe_year_operator
 from ...utils.regions import region_mean_weights
 from . import physics
 from .iage import SURF_SLOW_FACTOR, surf_restore_rate
@@ -138,9 +141,10 @@ class _InCoreKernel:
         return v * self.region_broadcast(factor)
 
     def region_broadcast(self, scalars):
-        """(module=1, region) scalars -> (nz, ny) field, 1 outside every
-        region"""
-        region_vals = self._tensor(np.asarray(scalars)[0])
+        """(module=1, region) scalars (a numpy array, or a tensor that stays
+        on its device) -> (nz, ny) field, 1 outside every region"""
+        region_vals = torch.as_tensor(scalars, dtype=self.dtype,
+                                      device=self.device)[0]
         field = (region_vals @ self._region_mask).reshape(self.nz, self.ny)
         return field + self._region_fill
 
@@ -205,6 +209,30 @@ class IageKernel(_InCoreKernel):
         """exact Jacobian-vector product of F at x: the model is linear, so
         it is the source-free year of v, minus v"""
         return self._year0_fn(v) - v
+
+    def build_year_operator(self, col_chunk=128):
+        """probe the exact dense one-year transition operator (the model is
+        linear; ops/year_operator.py): every grid basis column a channel of
+        the source-free year, col_chunk columns of each tracer a year.  With
+        the kernel (float32 on a card) each chunk is one launch of B1 on the
+        F and JVP years' table, its 2 * col_chunk channels mapped to the
+        two tracers' factor slots; elsewhere the plain year in the kernel's
+        dtype.  Afterwards F and JVPs are dense matvecs and the
+        cyclostationary state solves directly."""
+        span = (0.0, self.year)
+
+        def make_year0(channel_diag):
+            source0 = np.zeros((channel_diag.shape[0], 1, 1))
+            if self.use_kernel:
+                return build_iage_year(self.grid, channel_diag, source0, span,
+                                       self.n_steps, device=self.device,
+                                       table=self.table)
+            return build_iage_year_plain(self.grid, channel_diag, source0,
+                                         span, self.n_steps)
+
+        return probe_year_operator(make_year0, self._year_fn, self._vert_diag,
+                                   col_chunk=col_chunk, dtype=self.dtype,
+                                   device=self.device)
 
     # -- preconditioner -----------------------------------------------------------
 

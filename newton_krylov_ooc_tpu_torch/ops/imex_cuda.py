@@ -13,10 +13,13 @@ year is its own exact tangent map, so IageKernel's JVP runs through it too.
 
 `build_iage_table` builds, with csrc/iage_year.cu's table kernel, what
 every CN solve of one such year needs apart from the state: kv on the
-interior edges and each channel's Thomas factors (m, w, cp), for each of
-the year's n_steps + 1 solves.  B1 and B1v1 stream it a step ahead; one
-table serves every year of the same grid, implicit diagonal, span and steps
-(IageKernel's F and JVP years).  `iage_table_plain` is its plain version,
+interior edges and the Thomas factors (m, w, cp) of each distinct implicit
+diagonal (a slot), for each of the year's n_steps + 1 solves.  B1 and B1v1
+stream it a step ahead, each channel the factors of its slot (the channel
+map in the packed constants); one table serves every year of the same
+grid, span and steps whose channels' diagonals are among its slots
+(IageKernel's F and JVP years, and the year-operator probe's many channels
+of the same two diagonals).  `iage_table_plain` is its plain version,
 `cn_increment_factored` the CN increment from its factors (B1's and B2's
 chain, serial or in the kernels' scan order) and
 `build_iage_year_factored` the year through that increment, in plain
@@ -119,7 +122,7 @@ phosphorus_year_launches = 0
 _libs = {}
 
 # how many shape ints <name>_fields_len and <name>_launch take: t_dim, nz,
-# ny for iage; nz, ny for phosphorus
+# ny (and n_slots after t_dim in the launch) for iage; nz, ny for phosphorus
 _SHAPE_ARGS = {"iage_year": 3, "phosphorus_year": 2}
 # csrc/iage_year.cu's table: each part padded to _TABLE_ALIGN floats (its
 # kAlign); _TABLE_FACTORS (kFactors) fields a channel: m, w, cp
@@ -203,10 +206,12 @@ def _library(name):
     c_int, c_ptr, c_long = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
     c_float = ctypes.c_float
     shape = [c_int] * _SHAPE_ARGS[name]
-    # y0, out, fields, table, shape, n_steps, then t0 and dt (iage) or dt
-    # (phosphorus), stream
-    times = [c_float] * (2 if name == "iage_year" else 1)
-    launch = ([c_ptr] * 4 + shape + [c_int] + times + [c_ptr], c_int)
+    # y0, out, fields, table, shape (t_dim, n_slots, nz, ny for iage),
+    # n_steps, then t0 and dt (iage) or dt (phosphorus), stream
+    iage = name == "iage_year"
+    times = [c_float] * (2 if iage else 1)
+    launch = ([c_ptr] * 4 + shape + [c_int] * (2 if iage else 1) + times
+              + [c_ptr], c_int)
     signatures = {
         "fields_len": (shape, c_long),
         "smem_bytes": ([c_int] * 2, c_long),
@@ -360,11 +365,13 @@ def _flat32(parts):
     return torch.cat([p.to(torch.float32).reshape(-1) for p in parts])
 
 
-def _pack_fields(grid, diag, src):
+def _pack_fields(grid, diag, src, slot_map):
     """the iage kernel's packed float32 constants: header, grid fields,
-    src (T), diag (T, nz, ny)"""
+    src (T), diag (T, nz, ny), and each channel's factor slot (T, integers
+    as floats)"""
     header, grid_parts = _header_and_grid(grid)
-    return _flat32([header, *grid_parts, src, diag])
+    return _flat32([header, *grid_parts, src, diag,
+                    torch.as_tensor(slot_map, dtype=torch.float64)])
 
 
 def _align(floats):
@@ -372,9 +379,9 @@ def _align(floats):
 
 
 def table_layout(t_dim, nz, ny, n_steps):
-    """csrc/iage_year.cu's table layout, in floats: each of the n_steps + 1
-    solves holds kv (nz-1, ny), then each channel's m, w, cp (nz, ny) in
-    turn, each part padded to _TABLE_ALIGN floats"""
+    """csrc/iage_year.cu's table layout of t_dim slots, in floats: each of
+    the n_steps + 1 solves holds kv (nz-1, ny), then each slot's m, w, cp
+    (nz, ny) in turn, each part padded to _TABLE_ALIGN floats"""
     kv = _align((nz - 1) * ny)
     factors = _align(_TABLE_FACTORS * nz * ny)
     solve = kv + t_dim * factors
@@ -467,8 +474,9 @@ class IageTable:
     (csrc/iage_year.cu's table), for the year functions that share it
 
     tensor: the float32 table on its device (table_layout); key: the packed
-    float32 grid and implicit diagonal it was built from, which a year
-    checks against its own; shape (T, nz, ny), n_steps, t0, dt: the year's.
+    float32 grid and slot diagonals it was built from (_table_key); shape
+    (S, nz, ny): its S slots, one a distinct implicit diagonal; n_steps,
+    t0, dt: the year's.
     """
 
     def __init__(self, tensor, key, shape, n_steps, t0, dt, events=None):
@@ -493,15 +501,31 @@ class IageTable:
         return start.elapsed_time(end)
 
     def check(self, key, shape, n_steps, t0, dt, device):
-        """raise ValueError unless this table is the one a year of these
-        constants needs"""
-        same = (self.tensor.device == device and self.shape == shape
+        """the channel map of a year of these constants on this table: a
+        (T,) int64 tensor, each channel's slot, the first whose diagonal is
+        the channel's.  Raises ValueError unless the grid, span, steps and
+        device are the table's and every channel's diagonal is one of its
+        slots.
+
+        key: _table_key(grid, diag) of the year's (T, nz, ny) diagonal;
+        shape: (T, nz, ny)"""
+        t_dim, nz, ny = shape
+        n = nz * ny
+        grid_len = key.numel() - t_dim * n
+        slots = self.shape[0]
+        if (self.tensor.device == device and self.shape[1:] == (nz, ny)
                 and self.n_steps == n_steps and self.t0 == t0
-                and self.dt == dt and torch.equal(self.key, key))
-        if not same:
-            raise ValueError(
-                "the table was built for another year (grid, implicit "
-                "diagonal, span, steps or device)")
+                and self.dt == dt
+                and self.key.numel() - slots * n == grid_len
+                and torch.equal(self.key[:grid_len], key[:grid_len])):
+            rows = key[grid_len:].view(t_dim, n)
+            match = (rows[:, None, :]
+                     == self.key[grid_len:].view(slots, n)[None]).all(-1)
+            if bool(match.any(dim=1).all()):
+                return match.to(torch.int64).argmax(dim=1)
+        raise ValueError(
+            "the table was built for another year (grid, implicit "
+            "diagonal, span, steps or device)")
 
 
 def _time_step(t_span, n_steps):
@@ -516,16 +540,43 @@ def _table_key(grid, diag):
     return _flat32([header, *grid_parts, diag])
 
 
+def table_slots(diag):
+    """the distinct float32 channel diagonals of a (T, nz, ny) implicit
+    diagonal in the order they first appear, as a (S, nz, ny) float64
+    tensor: a table's slots (IageTable.check maps each channel to one)"""
+    rows = _cpu64(diag)
+    flat = rows.reshape(rows.shape[0], -1).to(torch.float32)
+    firsts = []
+    for ch, row in enumerate(flat):
+        if not any(torch.equal(flat[first], row) for first in firsts):
+            firsts.append(ch)
+    return rows[firsts]
+
+
+def check_table_bytes(nbytes, free, total, device_name):
+    """raise ValueError when a table of `nbytes` does not fit the `free` of
+    `total` bytes on a card, before it is allocated"""
+    if nbytes > free:
+        raise ValueError(
+            f"the iage table needs {nbytes} bytes ({nbytes / 2**30:.2f} GiB); "
+            f"{free} of {total} bytes are free on {device_name}: fewer "
+            "distinct implicit diagonals, steps or cells, or more room, "
+            "are needed")
+
+
 def build_iage_table(grid, vert_diag, t_span, n_steps, *, device):
-    """the table of a year's n_steps + 1 CN solves: one launch of
+    """the table of a year's n_steps + 1 CN solves, one slot for each
+    distinct channel diagonal of vert_diag (table_slots): one launch of
     csrc/iage_year.cu's table kernel on a CUDA `device` (one thread a solve
-    and column, over every SM); on the CPU, iage_table_plain's fields packed
-    in float32.  grid, vert_diag, t_span and n_steps as build_iage_year's;
-    the table serves every year of them, whatever its source."""
+    and column, over every SM), after checking that the card has room for
+    it; on the CPU, iage_table_plain's fields packed in float32.  grid,
+    vert_diag, t_span and n_steps as build_iage_year's; the table serves
+    every year of them, whatever its source, and every year whose channels'
+    diagonals are among its slots."""
     global iage_table_launches
     device = resolve_device(device)
     nz, ny = int(grid.depth_mid.shape[0]), int(grid.ypos_mid.shape[0])
-    diag = _cpu64(vert_diag).reshape(-1, nz, ny)
+    diag = table_slots(_cpu64(vert_diag).reshape(-1, nz, ny))
     t0, dt = _time_step(t_span, n_steps)
     t_dim = diag.shape[0]
     shape, n_steps = (t_dim, nz, ny), int(n_steps)
@@ -544,7 +595,10 @@ def build_iage_table(grid, vert_diag, t_span, n_steps, *, device):
                                "csrc/iage_year.cu")
     if lib.iage_year_table_floats(t_dim, nz, ny, n_steps) != layout["floats"]:
         raise RuntimeError("the table layout disagrees with csrc/iage_year.cu")
-    fields = _pack_fields(grid, diag, torch.zeros(t_dim)).to(device)
+    check_table_bytes(layout["bytes"], *torch.cuda.mem_get_info(device),
+                      torch.cuda.get_device_name(device))
+    fields = _pack_fields(grid, diag, torch.zeros(t_dim),
+                          torch.arange(t_dim)).to(device)
     tensor = torch.zeros(layout["floats"], dtype=torch.float32, device=device)
     events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
     with torch.cuda.device(device):
@@ -716,10 +770,13 @@ def build_iage_year(grid, vert_diag, source, t_span, n_steps, *, device,
     vert_diag: (T, nz, ny) linear local rates folded into the implicit
     solve; source: (T, 1, 1) constant explicit source (zeros for the
     tangent year); table: an IageTable of build_iage_table for the same
-    grid, vert_diag, t_span and n_steps, shared with other years (by
-    default the year builds its own).  Raises ValueError when the
-    shared-memory plan of one channel exceeds what one block may use on the
-    card, or a lane would own more levels than the kernel takes.
+    grid, t_span and n_steps whose slots hold every channel's diagonal,
+    shared with other years (by default the year builds its own, a slot for
+    each distinct diagonal); each channel streams the factors of its slot
+    (IageTable.check's map).  Raises ValueError when the table does not
+    serve this year, the shared-memory plan of one channel exceeds what one
+    block may use on the card, or a lane would own more levels than the
+    kernel takes.
     """
     return _iage_year(grid, vert_diag, source, t_span, n_steps, device, "",
                       table)
@@ -751,10 +808,7 @@ def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant,
     t0, dt = _time_step(t_span, n_steps)
     t_dim = diag.shape[0]
     shape, n_steps = (t_dim, nz, ny), int(n_steps)
-    fields = _pack_fields(grid, diag, src).to(device)
     lib = _library("iage_year")
-    if lib.iage_year_fields_len(t_dim, nz, ny) != fields.numel():
-        raise RuntimeError("packed constants disagree with csrc/iage_year.cu")
     if not lib.iage_year_levels(nz, ny):
         raise ValueError(
             f"the iage_year kernel takes columns of 2 to 256 levels, each on "
@@ -764,8 +818,12 @@ def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant,
                 variant)
     if table is None:
         table = build_iage_table(grid, diag, t_span, n_steps, device=device)
-    else:
-        table.check(_table_key(grid, diag), shape, n_steps, t0, dt, device)
+    slot_map = table.check(_table_key(grid, diag), shape, n_steps, t0, dt,
+                           device)
+    n_slots = table.shape[0]
+    fields = _pack_fields(grid, diag, src, slot_map).to(device)
+    if lib.iage_year_fields_len(t_dim, nz, ny) != fields.numel():
+        raise RuntimeError("packed constants disagree with csrc/iage_year.cu")
     launch = getattr(lib, f"iage_year_{variant}launch")
 
     def year(y0):
@@ -776,8 +834,8 @@ def _iage_year(grid, vert_diag, source, t_span, n_steps, device, variant,
             stream = torch.cuda.current_stream(device).cuda_stream
             err = launch(
                 y0.data_ptr(), out.data_ptr(), fields.data_ptr(),
-                table.tensor.data_ptr(), t_dim, nz, ny, n_steps, t0, dt,
-                stream,
+                table.tensor.data_ptr(), t_dim, n_slots, nz, ny, n_steps, t0,
+                dt, stream,
             )
         if err:
             raise cuda_error(lib, "iage_year", err,

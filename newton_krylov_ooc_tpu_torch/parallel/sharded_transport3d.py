@@ -1067,7 +1067,7 @@ class ShardedTransport3dKernel(_ShardedKernelInterface):
                                "fill": fill}
         self._dot = lambda a, b: _dot_pure_3d(a, b, self._reduce_consts)
         self._region_broadcast = lambda scalars: _broadcast_pure_3d(
-            torch.as_tensor(np.asarray(scalars), dtype=dtype,
+            torch.as_tensor(scalars, dtype=dtype,
                             device=self.device),
             self._reduce_consts,
         )

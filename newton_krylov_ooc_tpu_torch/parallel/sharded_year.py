@@ -399,7 +399,7 @@ class _ShardedKernelInterface:
             return torch.einsum("bzy,rzy->br", prod, self._mean_w)
 
         def region_broadcast(scalars):
-            scalars = torch.as_tensor(np.asarray(scalars), dtype=dtype,
+            scalars = torch.as_tensor(scalars, dtype=dtype,
                                       device=self.device)
             field = torch.einsum("br,rzy->bzy", scalars, self._onehot)
             return (field + self._region_fill)[:, None, :, :]
@@ -430,13 +430,31 @@ class _ShardedKernelInterface:
         return v * self._region_broadcast(factor)
 
     def region_broadcast(self, scalars):
-        """(module, region) scalars -> a field broadcastable over the state,
-        1 outside every region"""
+        """(module, region) scalars (a numpy array, or a tensor that stays on
+        its device) -> a field broadcastable over the state, 1 outside every
+        region"""
         return self._region_broadcast(scalars)
 
     def apply_limiter(self, x, increment):
         """no bounds on these tracers; factors are 1"""
         return np.ones((self.module_batch, self.region_cnt))
+
+    def _limiter_scalef_lob0_jit(self, x, increment, lob=0.0):
+        """_apply_limiter_lob0's twin on the device: the largest
+        per-(module, region) factor keeping x + scalef * increment >= lob in
+        every tracer.  Undershoots of the bound are clamped out of the base
+        as on the host; a state far outside the bound cannot raise here,
+        so the solve's Armijo and convergence flags show the divergence
+        instead."""
+        base = torch.clamp(x, min=lob)
+        violation = base + increment < lob
+        denom = torch.where(violation, increment, -torch.ones_like(increment))
+        scalef_cell = torch.where(violation, (lob - base) / denom, 1.0)
+        per_cell = scalef_cell.amin(dim=1)                 # (M, *spatial)
+        masked = torch.where(self._onehot[None] > 0, per_cell[:, None],
+                             torch.inf)                     # (M, R, *spatial)
+        scalef = masked.amin(dim=tuple(range(2, masked.ndim)))
+        return torch.clamp(scalef, max=1.0).to(self.dtype)
 
     def _finish_linear_family_setup(self, ypos, region_mask, grid_weight,
                                     tracer_diag_pc, t_dim):
@@ -670,6 +688,9 @@ class ShardedForcedFamilyKernel(_FamilyKernel):
                 inc_np[b, 0], 0.0, out=scalef[b],
             )
         return scalef
+
+    def limiter_scalef_jit(self, x, increment):
+        return self._limiter_scalef_lob0_jit(x, increment)
 
 
 class Slab(NamedTuple):

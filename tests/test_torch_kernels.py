@@ -200,6 +200,117 @@ def test_iage_kernel_builds_one_table(cuda_device):
         assert float((got - ref).abs().max()) / float(y0.abs().max()) < TOL
 
 
+# B1 under the channel map: 8 channels of the two tracers' diagonals in an
+# order no identity map gives, each with its own source, over the first
+# tenth of phase 2's year
+MAP_CHANNELS = [1, 0, 0, 1, 1, 0, 1, 0]
+
+
+def _map_year_inputs(nz, ny, device):
+    grid, diag = _setup(nz, ny, device)
+    diag8 = diag[MAP_CHANNELS]
+    source = (np.arange(8.0) / 4.0 / physics.SEC_PER_YEAR).reshape(8, 1, 1)
+    span = (0.0, 0.1 * physics.SEC_PER_YEAR)
+    y0 = torch.as_tensor(np.random.default_rng(17).uniform(0.0, 2.0,
+                                                           (8, nz, ny)),
+                         dtype=torch.float32, device=device)
+    return grid, diag, diag8, source, span, y0
+
+
+class _OwnSlots(imex_cuda.IageTable):
+    """a table whose every channel streams its own slot: the identity map,
+    once IageTable.check has accepted the year"""
+
+    def check(self, key, shape, n_steps, t0, dt, device):
+        super().check(key, shape, n_steps, t0, dt, device)
+        return torch.arange(shape[0])
+
+
+def _full_table(table, grid, diag8, n_steps):
+    """a table of one slot for each of the 8 channels, its factors copied
+    from the two-slot table's slots by the map, read through the identity
+    map"""
+    nz, ny = table.shape[1:]
+    kv, m, w, cp = imex_cuda.unpack_table(table.tensor, 2, nz, ny, n_steps)
+    slots = torch.as_tensor(MAP_CHANNELS, device=m.device)
+    tensor = imex_cuda.pack_table(kv, m[:, slots], w[:, slots],
+                                  cp[:, slots])
+    return _OwnSlots(tensor, imex_cuda._table_key(
+        grid, torch.as_tensor(diag8)), (8, nz, ny), n_steps, table.t0,
+        table.dt)
+
+
+@pytest.mark.parametrize("nz, ny", [(40, 50), (37, 53)])
+def test_year_kernel_channel_map_matches_full_table(cuda_device, nz, ny):
+    """B1 with 8 channels on the two-slot table (map 1, 0, 0, 1, 1, 0, 1,
+    0) against B1 on a table of a slot a channel holding the same factors:
+    bitwise equal, and one launch each"""
+    grid, diag, diag8, source, span, y0 = _map_year_inputs(nz, ny,
+                                                          cuda_device)
+    n_steps = 876
+    table = imex_cuda.build_iage_table(grid, diag, span, n_steps,
+                                       device=cuda_device)
+    assert table.shape[0] == 2
+    slot_map = table.check(imex_cuda._table_key(grid, torch.as_tensor(diag8)),
+                           (8, nz, ny), n_steps, *imex_cuda._time_step(
+                               span, n_steps), cuda_device)
+    assert slot_map.tolist() == MAP_CHANNELS
+    full = _full_table(table, grid, diag8, n_steps)
+    before = imex_cuda.iage_year_launches
+    y_map = imex_cuda.build_iage_year(grid, diag8, source, span, n_steps,
+                                      device=cuda_device, table=table)(y0)
+    y_full = imex_cuda.build_iage_year(grid, diag8, source, span, n_steps,
+                                       device=cuda_device, table=full)(y0)
+    # without a table the year builds its own, of the two distinct slots
+    tables = imex_cuda.iage_table_launches
+    own = imex_cuda.build_iage_year(grid, diag8, source, span, n_steps,
+                                    device=cuda_device)
+    y_own = own(y0)
+    torch.cuda.synchronize()
+    assert imex_cuda.iage_year_launches == before + 3
+    assert imex_cuda.iage_table_launches == tables + 1
+    assert torch.isfinite(y_map).all()
+    assert torch.equal(y_map, y_full)
+    assert torch.equal(y_map, y_own)
+
+
+def test_year_kernel_channel_map_matches_plain(cuda_device):
+    """B1 under the map against the plain float32 year of the 8 channels,
+    within the kernel's bound (5e-5 of max|y|)"""
+    nz, ny = 40, 50
+    grid, diag, diag8, source, span, y0 = _map_year_inputs(nz, ny,
+                                                          cuda_device)
+    table = imex_cuda.build_iage_table(grid, diag, span, 876,
+                                       device=cuda_device)
+    y_k = imex_cuda.build_iage_year(grid, diag8, source, span, 876,
+                                    device=cuda_device, table=table)(y0)
+    y_p = imex_cuda.build_iage_year_plain(grid, diag8, source, span, 876)(y0)
+    assert float((y_k - y_p).abs().max()) / float(y_p.abs().max()) < TOL
+
+
+def test_iage_kernel_year_operator_on_b1(cuda_device):
+    """IageKernel.build_year_operator on the card probes through B1 on the
+    kernel's one table (a launch a chunk, no new table), and the operator
+    reproduces F and the JVP through B1 (the JAX test's 1e-5)"""
+    nz, ny, n_steps, chunk = 8, 6, 24, 7
+    kernel = IageKernel(*build_axes(nz, ny), MODELINFO, device=cuda_device,
+                        n_steps=n_steps)
+    years, tables = imex_cuda.iage_year_launches, imex_cuda.iage_table_launches
+    op = kernel.build_year_operator(col_chunk=chunk)
+    torch.cuda.synchronize()
+    chunks = -(-nz * ny // chunk)
+    assert imex_cuda.iage_year_launches == years + chunks + 1
+    assert imex_cuda.iage_table_launches == tables
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.uniform(0.0, 2.0, (2, nz, ny)),
+                        dtype=torch.float32, device=cuda_device)
+    v = torch.as_tensor(rng.standard_normal((2, nz, ny)),
+                        dtype=torch.float32, device=cuda_device)
+    for ours, ref in ((op.fcn(x), kernel.comp_fcn(x)),
+                      (op.jvp(v), kernel.jvp(x, None, v))):
+        assert float((ours - ref).abs().max()) / float(ref.abs().max()) < 1e-5
+
+
 def _phosphorus_year(nz, ny, n_steps, device, years=1.0):
     depth, ypos = build_axes(nz, ny)
     grid = physics.make_grid(depth, ypos, MODELINFO, device=device,
