@@ -11,7 +11,10 @@ sharded py_driver_2d module-family spin-up on a (module, space) mesh
 blocked latitude-sharded 3D year (kernel transport3d_block) at gx1's
 horizontal extent and at full gx1 depth, and the first layout of the iage
 year (kernel iage_year_v1, iage_year's PCR variant), and the dense year
-operator of the iage year, probed through iage_year under its channel map.
+operator of the iage year, probed through iage_year under its channel map;
+and the file-backed Newton-Krylov path of the test_problem model
+(setup_solver and nk_driver, float64 on the card, no kernel of its own),
+held against the committed ci baselines.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -137,7 +140,19 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     farther from the plain f64 year than the plain f32 year is (a unit
     column decays to a few hundredths of itself, so relative to the
     output's max both lie beyond phase 2's 5e-5 from f64; its distance
-    from the plain f32 year printed).
+    from the plain f32 year printed);
+ 16 the file-backed test_problem path in float64 on the card, in a fresh
+    workdir: (a) ci_short's setup (setup_solver --fp_cnt 1 --depth_nlevs
+    20 --persist, iage and phosphorus) with depth_axis.nc and
+    gen_init_iterate/'s four files against baselines/ci_short at
+    baseline_cmp's defaults; (b) ci_long_iage: its setup, then the
+    generated nk_driver.sh (--persist) to convergence, krylov_00/'s files,
+    increment_00.nc and iterate_01.nc against baselines/ci_long_iage at
+    scripts/ci_long_iage.sh's tolerances and Newton_state.json byte for byte
+    after ci_common.sh's workdir rewrite; printed: seconds, step attempts,
+    tendency evaluations and LUs a model year, ms an attempt, the Newton
+    and Krylov counts, the phase's seconds.  Radau is no TPU kernel: the
+    phase adds no JSON entry.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
 year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
@@ -148,15 +163,20 @@ JSON line naming the device.
 
 import argparse
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from newton_krylov_ooc_tpu_torch.cli import (
+    baseline_cmp,
     incore_spinup,
     irf3d_spinup,
     sharded_spinup,
@@ -172,6 +192,12 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (
     IageKernel,
     PhosphorusKernel,
+)
+from newton_krylov_ooc_tpu_torch.models.test_problem import (
+    model_state as test_problem_state,
+)
+from newton_krylov_ooc_tpu_torch.models.test_problem import (
+    setup_solver as test_problem_setup,
 )
 from newton_krylov_ooc_tpu_torch.ops import (
     compute,
@@ -292,6 +318,27 @@ FUSED_TOL = 1e-4
 # against B1's, F(X*) through B1 (the JAX test's bound)
 YEAR_OP = ("40", "50", "8760", "125")
 YEAR_OP_TOL = 1e-5
+# phase 16: the ci scripts' setups and comparisons (scripts/ci_short.sh,
+# scripts/ci_long_iage.sh), the baseline directory of each, and its files
+# with (rtol, atol); None is baseline_cmp's defaults
+CI_SETUP = ["--fp_cnt", "1", "--depth_nlevs", "20", "--persist"]
+CI_SHORT_FILES = [("depth_axis.nc", None)] + [
+    (os.path.join("gen_init_iterate", name), None)
+    for name in ("fcn_00.nc", "hist_00.nc", "init_iterate.nc",
+                 "init_iterate_00.nc")]
+CI_LONG_IAGE_FILES = [
+    *[(os.path.join("krylov_00", name), None)
+      for name in ("precond_00.nc", "precond_fcn_00.nc", "basis_00.nc",
+                   "perturb_fcn_w_raw_00.nc")],
+    *[(os.path.join("krylov_00", name), (2.0e-4, baseline_cmp.DEFAULT_ATOL))
+      for name in ("w_raw_00.nc", "w_00.nc", "krylov_res_00.nc")],
+    *[(name, (2.0e-4, baseline_cmp.DEFAULT_ATOL))
+      for name in ("increment_00.nc", "iterate_01.nc")],
+]
+CI_DRIVER_TIMEOUT_S = 600
+RADAU_LINE = re.compile(
+    r"radau year: module=(\S+) device=(\S+) attempts=(\d+) nfev=(\d+) "
+    r"nlu=(\d+) seconds=([0-9.]+)")
 # phase 11: B6 on 1 shard repeats B5's arithmetic; 4 shards of the card
 SWEEP_VS_B5_TOL = 1e-6
 GX1_SHARDS = 4
@@ -1946,11 +1993,107 @@ def probe_chunk_check(kernel, device):
             scale_64, ms_k, ms_p)
 
 
+def ci_compare(name, workdir, files):
+    """each of files (relative path, tolerances) against baselines/name"""
+    base_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "baselines", name)
+    bad = []
+    for rel, tols in files:
+        rtol, atol = tols or (baseline_cmp.DEFAULT_RTOL, baseline_cmp.DEFAULT_ATOL)
+        if not baseline_cmp.compare(os.path.join(workdir, rel),
+                                    os.path.join(base_dir, os.path.basename(rel)),
+                                    rtol, atol):
+            bad.append(rel)
+    if bad:
+        raise SystemExit(f"chip_smoke: {name}: {bad} differ from the baselines")
+    return len(files)
+
+
+def ci_setup(workdir, device, extra=()):
+    """the port's test_problem setup_solver in this process, as
+    scripts/setup_solver.sh runs it"""
+    test_problem_state.ModelState.depth = None
+    test_problem_setup.main(test_problem_setup.parse_args(
+        [*CI_SETUP, "--workdir", workdir, "--device", device, *extra]))
+
+
+def radau_years(workdir):
+    """the Radau year lines of the workdir's solver log"""
+    with open(os.path.join(workdir, "newton_krylov.log")) as fptr:
+        return [dict(zip(("module", "device", "attempts", "nfev", "nlu",
+                          "seconds"), match.groups()))
+                for match in RADAU_LINE.finditer(fptr.read())]
+
+
+def file_backed_phase(device):
+    """phase 16: ci_short's setup and ci_long_iage's solve through the
+    port's test_problem setup_solver and nk_driver.sh, F in float64 on
+    `device` (the card here), against the committed baselines"""
+    start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ci_")
+    try:
+        short = os.path.join(work, "ci_short_workdir")
+        ci_setup(short, device)
+        short_files = ci_compare("ci_short", short, CI_SHORT_FILES)
+        short_s = time.perf_counter() - start
+
+        long = os.path.join(work, "ci_long_iage_workdir")
+        ci_setup(long, device, ["--tracer_module_names", "iage"])
+        driver = subprocess.run([os.path.join(long, "nk_driver.sh")],
+                                capture_output=True, text=True,
+                                timeout=CI_DRIVER_TIMEOUT_S)
+        if driver.returncode != 0:
+            print(driver.stdout[-4000:], driver.stderr[-4000:], flush=True)
+            raise SystemExit(f"chip_smoke: nk_driver.sh exited "
+                             f"{driver.returncode}")
+        long_files = ci_compare("ci_long_iage", long, CI_LONG_IAGE_FILES)
+        with open(os.path.join(long, "Newton_state.json")) as fptr:
+            log = fptr.read().replace(long, "HOME/ci_long_iage_workdir")
+        base_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "baselines", "ci_long_iage")
+        with open(os.path.join(base_dir, "Newton_state.json")) as fptr:
+            if log != fptr.read():
+                raise SystemExit("chip_smoke: ci_long_iage's Newton_state.json "
+                                 "differs from the baseline")
+        newton = json.loads(log)["iteration"]
+        krylov = []
+        for name in sorted(os.listdir(long)):
+            if name.startswith("krylov_"):
+                with open(os.path.join(long, name, "Krylov_state.json")) as fptr:
+                    krylov.append(json.load(fptr)["iteration"])
+        years = radau_years(short) + radau_years(long)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if {year["device"] for year in years} != {str(compute.resolve_device(device))}:
+        raise SystemExit(f"chip_smoke: Radau years ran on "
+                         f"{sorted({year['device'] for year in years})}")
+    stats = {}
+    for module in sorted({year["module"] for year in years}):
+        mine = [year for year in years if year["module"] == module]
+        attempts = sum(int(year["attempts"]) for year in mine)
+        seconds = sum(float(year["seconds"]) for year in mine)
+        stats[module] = {
+            "years": len(mine),
+            "s_a_year": round(seconds / len(mine), 3),
+            "attempts_a_year": round(attempts / len(mine), 1),
+            "nfev_a_year": round(sum(int(y["nfev"]) for y in mine) / len(mine), 1),
+            "nlu_a_year": round(sum(int(y["nlu"]) for y in mine) / len(mine), 1),
+            "ms_an_attempt": round(1e3 * seconds / attempts, 4),
+        }
+    phase(16, "file-backed test_problem (float64, Radau on the card)",
+          ci_short_files=short_files, ci_short_s=round(short_s, 1),
+          ci_long_iage_files=long_files, newton_state="identical",
+          newton_iterations=newton, krylov_iterations=krylov,
+          radau=json.dumps(stats, sort_keys=True),
+          seconds=round(time.perf_counter() - start, 1))
+    return stats
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(16),
-                        default=list(range(16)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(17),
+                        default=list(range(17)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -2005,6 +2148,8 @@ def main(argv=None):
         14: lambda: iage_v1_phase(depth, ypos, device),
         # 15: the dense year operator probed through the iage kernel
         15: lambda: year_operator_phase(device),
+        # 16: the file-backed test_problem path (no kernel of its own)
+        16: lambda: file_backed_phase("cuda"),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -2013,7 +2158,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(16)):
+    if phases != set(range(17)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0

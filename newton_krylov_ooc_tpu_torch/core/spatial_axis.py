@@ -1,16 +1,16 @@
 """SpatialAxis: 1D stretched-grid axis (edges, midpoints, thicknesses).
 
-The port's own copy of what the in-core models use of
-newton_krylov_ooc_tpu/core/spatial_axis.py (numpy only): axis construction
-from edges or a defn dict, with the quintic stretching.  The layer
-integrals, the conservative remap and the netCDF round trip
-(`SpatialAxis.dump`, `spatial_axis_from_file`) come with the file-backed
-slice, which needs them and the netCDF layer.
+Capability parity with nk_ooc/spatial_axis.py (axis construction from edges /
+defn dicts, polynomial stretching, layer integrals, conservative remap of
+piecewise-linear interpolants, netCDF round-trip), numpy only.  The port's
+own copy of newton_krylov_ooc_tpu/core/spatial_axis.py.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.ncio import NCFile
 
 
 class SpatialAxis:
@@ -28,8 +28,126 @@ class SpatialAxis:
         self.delta_mid = np.diff(self.mid)
         self.delta_mid_r = 1.0 / self.delta_mid
 
+        self.dump_names = {
+            "bounds": f"{axisname}_bounds",
+            "edges": f"{axisname}_edges",
+            "delta": f"{axisname}_delta",
+        }
+
     def __len__(self):
         return len(self.mid)
+
+    # -- netCDF round-trip -------------------------------------------------
+
+    def dump(self, fname, caller):
+        """write axis information to a netCDF file"""
+        with NCFile(fname, mode="w") as fptr:
+            name = f"{type(self).__module__}.{type(self).__name__}.dump"
+            fptr.stamp_history(name, caller)
+            if self.defn_dict_values is not None:
+                fptr.setncattr("defn_dict_values", self.defn_dict_values)
+            fptr.create_dimensions_verify(self.dump_dimensions())
+            fptr.create_vars(self.dump_vars_metadata())
+            self.dump_write(fptr)
+
+    def dump_dimensions(self):
+        return {
+            self.axisname: len(self),
+            "nbnds": 2,
+            self.dump_names["edges"]: len(self) + 1,
+        }
+
+    def dump_vars_metadata(self):
+        res = {
+            self.axisname: {
+                "dimensions": (self.axisname,),
+                "attrs": {
+                    "long_name": f"{self.axisname} layer midpoints",
+                    "units": self.units,
+                    "bounds": self.dump_names["bounds"],
+                },
+            },
+            self.dump_names["bounds"]: {
+                "dimensions": (self.axisname, "nbnds"),
+                "attrs": {"long_name": f"{self.axisname} layer bounds"},
+            },
+            self.dump_names["edges"]: {
+                "dimensions": (self.dump_names["edges"],),
+                "attrs": {
+                    "long_name": f"{self.axisname} layer edges",
+                    "units": self.units,
+                },
+            },
+            self.dump_names["delta"]: {
+                "dimensions": (self.axisname,),
+                "attrs": {
+                    "long_name": f"{self.axisname} layer thickness",
+                    "units": self.units,
+                },
+            },
+        }
+        return res
+
+    def dump_vals_dict(self):
+        return {
+            self.axisname: self.mid,
+            self.dump_names["bounds"]: np.stack((self.edges[:-1], self.edges[1:]), axis=1),
+            self.dump_names["edges"]: self.edges,
+            self.dump_names["delta"]: self.delta,
+        }
+
+    def dump_write(self, fptr):
+        for name, vals in self.dump_vals_dict().items():
+            fptr.var(name)[:] = vals
+        fptr.sync()
+
+    # -- numerics ------------------------------------------------------------
+
+    def int_vals_mid(self, vals, axis):
+        """thickness-weighted layer integral of midpoint values along an axis"""
+        vals = np.asarray(vals)
+        if vals.shape[axis] != len(self):
+            raise ValueError(f"length mismatch, {vals.shape[axis]} != {len(self)}")
+        ndim = vals.ndim
+        pos = axis if axis >= 0 else ndim + axis
+        if pos < ndim - 3:
+            raise ValueError(f"axis={axis}")
+        shape = [1] * ndim
+        shape[pos] = len(self)
+        return (self.delta.reshape(shape) * vals).sum(axis=pos)
+
+    def remap_linear_interpolant(self, xvals, yvals):
+        """
+        Conservatively remap the piecewise-linear interpolant through
+        (xvals, yvals) onto this axis: per-layer averages of the (endpoint-
+        clamped) interpolant.  Vectorized: integrate trapezoid segments over the
+        union of layer edges and interior breakpoints, then bin by layer.
+        """
+        xvals = np.asarray(xvals, dtype=np.float64)
+        yvals = np.asarray(yvals, dtype=np.float64)
+
+        interior = xvals[(xvals > self.edges[0]) & (xvals < self.edges[-1])]
+        breaks = np.union1d(self.edges, interior)
+        ybreaks = np.interp(breaks, xvals, yvals)
+
+        seg_int = 0.5 * (ybreaks[:-1] + ybreaks[1:]) * np.diff(breaks)
+        seg_mid = 0.5 * (breaks[:-1] + breaks[1:])
+        layer_of_seg = np.searchsorted(self.edges, seg_mid) - 1
+
+        layer_int = np.bincount(layer_of_seg, weights=seg_int, minlength=len(self))
+        return layer_int * self.delta_r
+
+
+def spatial_axis_from_file(fname, axisname, edges_varname=None):
+    """SpatialAxis from edge values stored in a netCDF file"""
+    if edges_varname is None:
+        edges_varname = f"{axisname}_edges"
+    with NCFile(fname) as fptr:
+        var = fptr.var(edges_varname)
+        edges = var[:]
+        units = var.attrs.get("units")
+        defn_dict_values = fptr.attrs.get("defn_dict_values")
+    return SpatialAxis(axisname, edges, units, defn_dict_values)
 
 
 def spatial_axis_from_defn_dict(defn_dict):
@@ -57,7 +175,8 @@ def _edges_from_defn_dict(defn_dict):
     """
     edge values from a defn dict, using a zero-mean quintic stretching function
     so that adding multiples of it to the layer thicknesses preserves the mean
-    thickness
+    thickness (same stretching family as the reference,
+    nk_ooc/spatial_axis.py:253-290)
     """
     nlevs = defn_dict["nlevs"]["value"]
     edge_start = defn_dict["edge_start"]["value"]

@@ -5,13 +5,36 @@ one system and vmaps the batch; here the batch is written out: every
 argument is (..., n) and the recurrence loops over the last axis with whole
 batches per step.  `pcr_solve` is parallel cyclic reduction,
 ceil(log2(n)) vectorized stages -- the plain version of the CN solves in
-ops/imex.py.  The numpy host solver `thomas_solve_np` is framework-free and
-lives in the JAX package; the tests use it as the oracle.
+ops/imex.py.  `thomas_solve_np` is the numpy host solver (a copy of the JAX
+package's), which the file-backed test_problem preconditioners use.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def thomas_solve_np(dl, d, du, b):
+    """numpy Thomas solve (host path), same argument convention"""
+    n = d.shape[-1]
+    dl = np.asarray(dl, dtype=np.float64)
+    d = np.asarray(d, dtype=np.float64)
+    du = np.asarray(du, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    c = np.empty_like(d)
+    g = np.empty_like(b)
+    c[..., 0] = du[..., 0] / d[..., 0]
+    g[..., 0] = b[..., 0] / d[..., 0]
+    for i in range(1, n):
+        denom = d[..., i] - dl[..., i] * c[..., i - 1]
+        c[..., i] = du[..., i] / denom
+        g[..., i] = (b[..., i] - dl[..., i] * g[..., i - 1]) / denom
+    x = np.empty_like(b)
+    x[..., -1] = g[..., -1]
+    for i in range(n - 2, -1, -1):
+        x[..., i] = g[..., i] - c[..., i] * x[..., i + 1]
+    return x
 
 
 def thomas_solve(dl, d, du, b):

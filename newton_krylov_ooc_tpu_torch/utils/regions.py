@@ -1,10 +1,11 @@
-"""host-side per-region reduction helpers (numpy).
+"""host-side per-region reduction kernels (vectorized numpy).
 
-The port's own copy of the parts of newton_krylov_ooc_tpu/utils/regions.py
-that the in-core kernels use.  Regions are decoupled sub-domains of the
-grid: region_mask holds 1-based region indices (0 = outside the
-computational domain).  Solver scalars (norms, limiter factors, convergence
-flags) carry a region axis.
+Regions are decoupled sub-domains of the grid: region_mask holds 1-based region
+indices (0 = outside the computational domain).  Solver scalars (norms, limiter
+factors, convergence flags) carry a region axis; these kernels compute them.
+
+Capability parity: nk_ooc/utils.py:544-600.  The port's own copy of
+newton_krylov_ooc_tpu/utils/regions.py.
 """
 
 from __future__ import annotations
@@ -45,11 +46,30 @@ def comp_scalef_lob(region_cnt, region_mask, base, increment, lob, out=None):
     return min_by_region(region_cnt, region_mask, scalef_all, out)
 
 
+def comp_scalef_upb(region_cnt, region_mask, base, increment, upb, out=None):
+    """
+    largest 0<=scalef<=1 per region such that base + scalef * increment <= upb
+    """
+    if out is None:
+        out = np.empty(region_cnt)
+    elif out.shape != (region_cnt,):
+        raise ValueError(f"unexpected out.shape={out.shape}")
+    if upb is None or (base + increment <= upb).all():
+        out[:] = 1.0
+        return out
+    if (base > upb).any():
+        raise ValueError("base > upb")
+    scalef_all = np.ones(np.shape(base))
+    violation = base + increment > upb
+    np.divide(upb - base, increment, out=scalef_all, where=violation)
+    return min_by_region(region_cnt, region_mask, scalef_all, out)
+
+
 def region_mean_weights(region_mask, grid_weight):
     """
-    dense (region_cnt, ncells) row-stochastic weight matrix computing
-    per-region weighted means; one matmul against it gives every region's
-    mean at once
+    dense (region_cnt, ncells) row-stochastic weight matrix computing per-region
+    weighted means; the device path contracts with it in a single matmul
+    rather than scipy CSR (reference: nk_ooc/model_config.py:283-315)
     """
     mask_flat = np.asarray(region_mask).reshape(-1)
     weight_flat = np.asarray(grid_weight, dtype=np.float64).reshape(-1)
@@ -61,3 +81,15 @@ def region_mean_weights(region_mask, grid_weight):
         if wsum > 0.0:
             mat[region_ind, sel] = weight_flat[sel] / wsum
     return mat
+
+
+def broadcast_region_vals(region_mask, vals, fill_value=1.0):
+    """
+    scatter per-region scalars onto the grid: result[cell] = vals[region-1] inside
+    regions, fill_value outside (reference: tracer_module_state_base.py:502-515)
+    """
+    region_mask = np.asarray(region_mask)
+    res = np.full(region_mask.shape, float(fill_value))
+    for region_ind, val in enumerate(np.asarray(vals)):
+        res = np.where(region_mask == region_ind + 1, val, res)
+    return res
