@@ -12,9 +12,12 @@ blocked latitude-sharded 3D year (kernel transport3d_block) at gx1's
 horizontal extent and at full gx1 depth, and the first layout of the iage
 year (kernel iage_year_v1, iage_year's PCR variant), and the dense year
 operator of the iage year, probed through iage_year under its channel map;
-and the file-backed Newton-Krylov path of the test_problem model
+the file-backed Newton-Krylov path of the test_problem model
 (setup_solver and nk_driver, float64 on the card, no kernel of its own),
-held against the committed ci baselines.
+held against the committed ci baselines; and py_driver_2d's file-backed
+path (setup_solver and nk_driver, the float64 Radau year in banded mode,
+kernel banded_lu, which replaces a lax.scan, not a Pallas kernel), held
+against its committed ci baselines and against the dense route.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -92,8 +95,10 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     one card, checked for convergence, for launches (one a year: every
     shard of the card in one launch), against a float64 per-step
     evaluation of F at each solution, and against each other, with the
-    host's halo copies a year; then host-driven and fused again on the
-    CLI's kernel (both warm);
+    host's halo copies a year, the vertical-product preconditioner's
+    banded_lu launches (nonzero) and the Newton and Krylov counts (as
+    before the preconditioner went through banded_lu); then host-driven
+    and fused again on the CLI's kernel (both warm);
  11 transport3d_sweep at gx1, uncut, on phase 8's steady upwind3 inputs:
     the 2000-step year on a 1-shard mesh timed beside transport3d_stream
     (the overhead in percent; the two agree within 1e-6), on 4 shards of
@@ -152,17 +157,41 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     after ci_common.sh's workdir rewrite; printed: seconds, step attempts,
     tendency evaluations and LUs a model year, ms an attempt, the Newton
     and Krylov counts, the phase's seconds.  Radau is no TPU kernel: the
-    phase adds no JSON entry.
+    phase adds no JSON entry;
+ 17 py_driver_2d's file-backed path in float64 on the card, the Radau year
+    in banded mode (every stage LU and solve through banded_lu): (a)
+    scripts/ci_py_driver_2d_iage.sh's 30 x 30 setup (--fp_cnt 1), its five
+    files against baselines/ci_py_driver_2d_iage at the script's
+    tolerances; (b) scripts/ci_py_driver_2d_iage_column_regions.sh (20 x 3,
+    lateral transport off, a region a column): setup, nk_driver.sh
+    (--persist) to convergence, every file the script compares at its
+    tolerances, Newton_state.json byte for byte after the workdir rewrite;
+    (c) an iage year at input/py_driver_2d/model_params.cfg's 40 x 50, and
+    its first 30 days against the dense-mode Radau5 on the card (n = 4000)
+    within 1e-7 of max|y|; (d) phosphorus at 30 x 30: 30 days against the
+    dense mode (n = 2700), then apply_precond_jacobian (eigen iterations
+    and shifted solves through banded_lu) with its null-vector guard
+    passing, precond_null_space.nc written and total P conserved within
+    1e-10; every Radau year gated on banded_lu launches; printed: seconds,
+    attempts, tendency evaluations, LUs and banded_lu launches a year, ms
+    an attempt; then banded_lu against its plain twin at the path's shapes
+    (iage 30 x 30 and 40 x 50, phosphorus 30 x 30) in float64 and
+    complex128 within 1e-12, with factor and solve us, the plain twin's
+    ms, the dense torch.linalg LU of the same matrices (library_ms) and
+    the bound.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
 year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
-coupled year for transport3d_block), with the least time the card could take for
+coupled year for transport3d_block, a refactored stage's complex factor
+and one solve at 2 x 900 x 61 for banded_lu), with the least time the card could take for
 that work (bound_ms, from the H100's published peaks) -- and, last, one
 JSON line naming the device.
 """
 
 import argparse
+import copy
 import json
+import logging
 import os
 import re
 import shutil
@@ -184,7 +213,15 @@ from newton_krylov_ooc_tpu_torch.cli import (
 )
 from newton_krylov_ooc_tpu_torch.core.incore import NewtonKrylovInCore
 from newton_krylov_ooc_tpu_torch.models.irf_offline import synthetic
-from newton_krylov_ooc_tpu_torch.models.py_driver_2d import phosphorus, physics
+from newton_krylov_ooc_tpu_torch.config import model_config as port_model_config
+from newton_krylov_ooc_tpu_torch.config import share as port_share
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d import (
+    iage as pd2d_iage,
+    model_state as pd2d_state,
+    phosphorus,
+    physics,
+    setup_solver as pd2d_setup,
+)
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.iage import (
     SURF_SLOW_FACTOR,
     surf_restore_rate,
@@ -200,6 +237,8 @@ from newton_krylov_ooc_tpu_torch.models.test_problem import (
     setup_solver as test_problem_setup,
 )
 from newton_krylov_ooc_tpu_torch.ops import (
+    banded,
+    banded_cuda,
     compute,
     imex_block_cuda,
     imex_cuda,
@@ -208,6 +247,7 @@ from newton_krylov_ooc_tpu_torch.ops import (
     transport3d_stream_cuda,
     transport3d_sweep_cuda,
 )
+from newton_krylov_ooc_tpu_torch.ops.radau import Radau5
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel import sharded_year
 from newton_krylov_ooc_tpu_torch.parallel.mesh import make_mesh
@@ -339,6 +379,56 @@ CI_DRIVER_TIMEOUT_S = 600
 RADAU_LINE = re.compile(
     r"radau year: module=(\S+) device=(\S+) attempts=(\d+) nfev=(\d+) "
     r"nlu=(\d+) seconds=([0-9.]+)")
+# phase 17: py_driver_2d's file-backed path.  scripts/ci_py_driver_2d_iage.sh
+# and scripts/ci_py_driver_2d_iage_column_regions.sh: their overrides of
+# input/py_driver_2d's cfgs, and their files with (rtol, atol), None being
+# baseline_cmp's defaults
+PD2D_INPUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "input",
+                          "py_driver_2d")
+PD2D_IAGE = {"depth_nlevs": 30, "ypos_nlevs": 30}
+PD2D_COLUMNS = {"depth_nlevs": 20, "ypos_nlevs": 3, "max_abs_vvel": 0.0,
+                "horiz_mix_coeff": 0.0}
+PD2D_SETUP_FILES = [("grid_vars.nc", None)] + [
+    (os.path.join("gen_init_iterate", name), (1.0e-3, 1.0e-6))
+    for name in ("fcn_0000.nc", "hist_0000.nc", "init_iterate.nc",
+                 "init_iterate_0000.nc")]
+_RTOL, _ATOL = baseline_cmp.DEFAULT_RTOL, baseline_cmp.DEFAULT_ATOL
+PD2D_SOLVE_FILES = [
+    (os.path.join("krylov_00", "precond_00.nc"), None),
+    (os.path.join("krylov_00", "precond_fcn_00.nc"), (2.0e-3, _ATOL)),
+    (os.path.join("krylov_00", "basis_00.nc"), (_RTOL, 5.0e-5)),
+    (os.path.join("krylov_00", "perturb_fcn_w_raw_00.nc"), (_RTOL, 5.0e-6)),
+    (os.path.join("krylov_00", "krylov_res_00.nc"), (1.9e-2, _ATOL)),
+    ("increment_00.nc", (1.9e-2, _ATOL)),
+    ("iterate_01.nc", (1.9e-2, _ATOL)),
+]
+PD2D_RADAU_LINE = re.compile(
+    r"radau year: module=(\S+) device=(\S+) attempts=(\d+) nfev=(\d+) "
+    r"nlu=(\d+) seconds=([0-9.]+) lu_launches=(\d+)")
+PD2D_MONTH = 30 * 86400.0
+# the banded year against the dense one on the card over 30 days, relative
+# to max|y|: the CPU tests' bound (tests/test_torch_radau.py, JAX's
+# tests/test_phosphorus_bands.py)
+PD2D_DENSE_TOL = 1e-7
+# the preconditioner's solution conserves total P: its grid-weighted total
+# against the weighted total of its magnitude
+PD2D_CONSERVE_TOL = 1e-10
+# phase 10's counts (Newton, Krylov a step) from before its vertical-product
+# preconditioner went through the banded kernel (PERF.md), which it keeps
+PHASE10_COUNTS = (4, [30, 30, 30, 30])
+# the banded kernel's shapes on the path (blocks, rows, half-width): the
+# ci 30 x 30 iage stage systems, the 40 x 50 iage year's, phosphorus at 30 x
+# 30; the JSON entry's is the first, in complex128 (a refactored stage's
+# complex factor and one solve)
+BANDED_SHAPES = {"iage 30x30": (2, 900, 30), "iage 40x50": (2, 2000, 40),
+                 "phosphorus 30x30": (1, 2700, 90)}
+BANDED_TOL = {torch.float64: 1e-12, torch.complex128: 1e-12}
+# H100 SXM's peak float64 rate, in its tensor cores (NVIDIA's data sheet;
+# 34e12 outside them, where the kernel's arithmetic runs: the bound takes
+# the least time the card could take): a complex multiply-add is 8
+# operations, a real one 2, a division 1 (real) or 10 (complex, scaled)
+PEAK_F64_PER_S = 67e12
+
 # phase 11: B6 on 1 shard repeats B5's arithmetic; 4 shards of the card
 SWEEP_VS_B5_TOL = 1e-6
 GX1_SHARDS = 4
@@ -461,6 +551,7 @@ def reset_counts():
     transport3d_block_cuda.transport3d_block_launches = 0
     imex_cuda.iage_year_v1_launches = 0
     imex_cuda.iage_table_launches = 0
+    banded_cuda.set_launch_counts(0, 0)
     sharded_year.halo_copies = 0
 
 
@@ -1618,6 +1709,18 @@ def sharded_solve_phase(device):
         if count < years or count == 0:
             raise SystemExit(f"chip_smoke: {count} iage_block launches for "
                              f"{years} years {label}")
+        # the vertical-product preconditioner's factor and solves went
+        # through the banded kernel, and the counts stayed
+        lu_launches = banded_cuda.launch_counts()
+        counts = (info["iterations"],
+                  [int(k) for k in info["krylov_iterations"]])
+        phase(10, f"sharded spin-up {label} banded LU",
+              factor_launches=lu_launches[0], solve_launches=lu_launches[1],
+              counts=counts, counts_before=PHASE10_COUNTS)
+        if min(lu_launches) == 0 or counts != PHASE10_COUNTS:
+            raise SystemExit(f"chip_smoke: banded launches {lu_launches}, "
+                             f"counts {counts} {label} (before: "
+                             f"{PHASE10_COUNTS})")
         # the host-driven GMRES on the same kernel
         reset_counts()
         x_h, fcn_h, info_h = solve_timed(kernel, **sharded_spinup.SOLVER)
@@ -2089,11 +2192,343 @@ def file_backed_phase(device):
     return stats
 
 
+# -- phase 17: py_driver_2d's file-backed path --------------------------------
+
+
+class _Lines(logging.Handler):
+    """the messages logged while it is attached"""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def pd2d_cfg_fnames(workdir, override):
+    """input/py_driver_2d's two cfgs and the workdir's override.cfg"""
+    os.makedirs(workdir, exist_ok=True)
+    fname = os.path.join(workdir, "override.cfg")
+    with open(fname, "w") as fptr:
+        fptr.write("\n".join(["[modelinfo]"] + [f"{key} = {val}" for key, val
+                                               in override.items()]) + "\n")
+    return ",".join([os.path.join(PD2D_INPUT, "newton_krylov.cfg"),
+                     os.path.join(PD2D_INPUT, "model_params.cfg"), fname])
+
+
+def pd2d_ci_setup(workdir, override, device, extra=()):
+    """the port's py_driver_2d setup_solver in this process, as
+    scripts/setup_solver.sh runs it for the ci scripts"""
+    pd2d_state.ModelState.reset_class_state()
+    pd2d_setup.main(pd2d_setup.parse_args(
+        ["--fp_cnt", "1", "--model_name", "py_driver_2d",
+         "--tracer_module_names", "iage",
+         "--cfg_fnames", pd2d_cfg_fnames(workdir, override),
+         "--workdir", workdir, "--device", device, *extra]))
+
+
+def pd2d_model(workdir, override, modules, device):
+    """the ModelState class configured on workdir (grid file written), as
+    the solver configures it"""
+    pd2d_state.ModelState.reset_class_state()
+    parser, rest = port_share.common_args(
+        "chip_smoke", "py_driver_2d",
+        ["--cfg_fnames", pd2d_cfg_fnames(workdir, override), "--workdir",
+         workdir, "--tracer_module_names", modules, "--persist", "--device",
+         device])
+    args = parser.parse_args(rest)
+    config = port_share.read_cfg_files(args)
+    pd2d_setup.gen_grid_vars_file(args, config["modelinfo"])
+    pd2d_state.ModelState.model_config_obj = port_model_config.ModelConfig(
+        config["modelinfo"])
+    return pd2d_state.ModelState
+
+
+def pd2d_years(lines):
+    """the Radau year lines among log lines"""
+    keys = ("module", "device", "attempts", "nfev", "nlu", "seconds",
+            "lu_launches")
+    return [dict(zip(keys, match.groups())) for line in lines
+            for match in PD2D_RADAU_LINE.finditer(line)]
+
+
+def pd2d_log_years(workdir):
+    with open(os.path.join(workdir, "newton_krylov.log")) as fptr:
+        return pd2d_years(fptr.read().splitlines())
+
+
+def year_stats(years):
+    """seconds, attempts, nfev, LUs and banded launches a year, ms an
+    attempt"""
+    count = len(years)
+    attempts = sum(int(y["attempts"]) for y in years)
+    seconds = sum(float(y["seconds"]) for y in years)
+    return {
+        "years": count,
+        "s_a_year": round(seconds / count, 4),
+        "attempts_a_year": round(attempts / count, 1),
+        "nfev_a_year": round(sum(int(y["nfev"]) for y in years) / count, 1),
+        "nlu_a_year": round(sum(int(y["nlu"]) for y in years) / count, 1),
+        "lu_launches_a_year": round(
+            sum(int(y["lu_launches"]) for y in years) / count, 1),
+        "ms_an_attempt": round(1e3 * seconds / attempts, 4),
+    }
+
+
+def captured(fn):
+    """(fn(), the model state's log lines meanwhile)"""
+    capture = _Lines()
+    logger = logging.getLogger(pd2d_state.__name__)
+    logger.setLevel(logging.INFO)
+    logger.addHandler(capture)
+    try:
+        return fn(), capture.lines
+    finally:
+        logger.removeHandler(capture)
+
+
+def month_against_dense(state_cls, module_cls, device, label, hist=None):
+    """F over 30 days of gen_init_iterate through the model's comp_fcn (the
+    banded year on the card; its history to `hist`) against the dense-mode
+    Radau5 of the same tendency and tolerances on the card; returns (the
+    banded month's year line, the month's state, F)"""
+
+    class Month(state_cls):
+        time_range = (0.0, PD2D_MONTH)
+
+    state = Month("gen_init_iterate")
+    y0 = state.tracer_modules[0].get_tracer_vals_all().reshape(-1)
+    fcn, lines = captured(lambda: state.comp_fcn(None, None, hist))
+    banded_y = fcn.tracer_modules[0].get_tracer_vals_all().reshape(-1) + y0
+    (year,) = pd2d_years(lines)
+    tracer_module = state.tracer_modules[0]
+    grid = state._grid(torch.float64, device)
+    static = tracer_module.tend_static_args()
+    solver = Radau5(
+        module_cls.build_tend(grid, static, None), len(y0), (0.0, PD2D_MONTH),
+        [0.0, PD2D_MONTH], device=device, rtol=2.0e-7, atol=2.0e-7,
+        max_step=0.01 * PD2D_MONTH,
+        jac=module_cls.build_jac(grid, static, None))
+    (dense_ys, info), dense_ms = timed(
+        solver.integrate, torch.as_tensor(y0, dtype=torch.float64, device=device))
+    if not info["success"]:
+        raise SystemExit(f"chip_smoke: the dense {label} month failed")
+    dense_y = dense_ys[-1].cpu().numpy()
+    diff = float(np.abs(banded_y - dense_y).max() / np.abs(dense_y).max())
+    phase(17, f"{label}: 30 days banded vs dense on the card", rel_diff=diff,
+          tol=PD2D_DENSE_TOL, banded_s=float(year["seconds"]),
+          banded_attempts=int(year["attempts"]), banded_nlu=int(year["nlu"]),
+          dense_s=round(dense_ms / 1e3, 3), dense_attempts=info["n_attempts"],
+          dense_nlu=info["nlu"], lu_launches=int(year["lu_launches"]))
+    if not diff < PD2D_DENSE_TOL:
+        raise SystemExit(f"chip_smoke: {label}: banded and dense months differ "
+                         f"by {diff:.3e} (bound {PD2D_DENSE_TOL})")
+    return year, state, fcn
+
+
+def banded_ops(n_blocks, m, bw, cplx):
+    """float64 operations of one factorisation and one solve, counted from
+    the algorithm (csrc/banded_lu.cu's note): the pivots' multiply-adds and
+    divisions, the solves' multiply-adds and divisions"""
+    fma, div = (8, 10) if cplx else (2, 1)
+    upd = sum(min(bw, m - 1 - p) ** 2 for p in range(m - 1))
+    mult = sum(min(bw, m - 1 - p) for p in range(m - 1))
+    return n_blocks * (fma * (upd + 2 * mult) + div * (mult + m))
+
+
+def banded_bound(n_blocks, m, bw, dtype):
+    """(least ms, "bytes" or "operations") of one factorisation and one
+    solve: the bands read, the factors written, the right-hand side read,
+    the solution written (the factors the solve reads again are the
+    work's intermediate)"""
+    elem = torch.empty((), dtype=dtype).element_size()
+    width = 2 * bw + 1
+    n_bytes = elem * n_blocks * (2 * m * width + 2 * m)
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * banded_ops(n_blocks, m, bw, dtype.is_complex) / PEAK_F64_PER_S
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def banded_kernel_timings(device):
+    """the banded kernel against its plain twin at the path's shapes in
+    float64 and complex128: errors, factor and solve ms, the plain twin's
+    ms, the dense torch.linalg.lu_factor + lu_solve of the same matrices
+    (library_ms, which the port never calls) and the bound; returns the
+    JSON entry's numbers (iage 30x30, complex128)"""
+    rng = np.random.default_rng(17)
+    entry = None
+    for label, (n_blocks, m, bw) in BANDED_SHAPES.items():
+        for dtype in (torch.float64, torch.complex128):
+            vals = rng.uniform(-1.0, 1.0, (n_blocks, m, 2 * bw + 1))
+            if dtype.is_complex:
+                vals = vals + 1j * rng.uniform(-1.0, 1.0, vals.shape)
+            rows = np.arange(m)[:, None] + np.arange(2 * bw + 1)[None, :] - bw
+            vals[:, (rows < 0) | (rows >= m)] = 0.0
+            vals[:, :, bw] = np.abs(vals).sum(axis=-1) + 1.0
+            bands = torch.as_tensor(vals, dtype=dtype, device=device)
+            rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (n_blocks, m)),
+                                  dtype=dtype, device=device)
+            lu = banded.banded_lu_factor_blocks(bands)
+            x = banded.banded_lu_solve_blocks(lu, rhs)
+            (lu_p, x_p), plain_ms = timed(lambda: (
+                lambda f: (f, banded.banded_lu_solve_plain(f, rhs)))(
+                    banded.banded_lu_factor_plain(bands)))
+            err = max(float((lu - lu_p).abs().max() / lu_p.abs().max()),
+                      float((x - x_p).abs().max() / x_p.abs().max()))
+            abs_err = max(float((lu - lu_p).abs().max()),
+                          float((x - x_p).abs().max()))
+            _, factor_ms = kernel_timing_reps(
+                lambda _: banded.banded_lu_factor_blocks(bands), None, 10)
+            _, solve_ms = kernel_timing_reps(
+                lambda _: banded.banded_lu_solve_blocks(lu, rhs), None, 20)
+            dense = torch.zeros((n_blocks, m, m), dtype=dtype, device=device)
+            for d in range(2 * bw + 1):
+                off = d - bw
+                idx = torch.arange(max(0, -off), min(m, m - off), device=device)
+                dense[:, idx, idx + off] = bands[:, idx, d]
+
+            def library():
+                lu_d, piv = torch.linalg.lu_factor(dense)
+                return torch.linalg.lu_solve(lu_d, piv, rhs[..., None])
+
+            _, library_ms = kernel_timing_reps(lambda _: library(), None, 3)
+            bound_ms, bound_by = banded_bound(n_blocks, m, bw, dtype)
+            _threads, shared, smem = banded_cuda.factor_plan(dtype, bw, device)
+            phase(17, f"banded_lu {label} {str(dtype)[6:]} ({n_blocks} x {m} "
+                      f"x {2 * bw + 1})", rel_err=err, tol=BANDED_TOL[dtype],
+                  factor_us=round(1e3 * factor_ms, 2),
+                  solve_us=round(1e3 * solve_ms, 2),
+                  plain_factor_and_solve_ms=round(plain_ms, 2),
+                  library_ms=round(library_ms, 4), bound_us=round(1e3 * bound_ms, 3),
+                  bound_by=bound_by, window="shared" if shared else "device",
+                  smem_bytes=smem)
+            if not err < BANDED_TOL[dtype]:
+                raise SystemExit(f"chip_smoke: banded_lu {label} {dtype} differs "
+                                 f"from its plain twin by {err:.3e}")
+            if entry is None and dtype.is_complex:
+                entry = (abs_err, factor_ms + solve_ms, plain_ms, bound_ms,
+                         bound_by, library_ms)
+            del dense
+    return entry
+
+
+def py_driver_2d_phase(device):
+    """phase 17: py_driver_2d's file-backed path in float64 on the card:
+    ci_py_driver_2d_iage's setup and ci_py_driver_2d_iage_column_regions'
+    solve against baselines/, the 40 x 50 iage year and its first 30 days
+    against the dense route, phosphorus at 30 x 30 (30 days against the
+    dense route, then its preconditioner); returns the banded kernel's
+    launches over the path and the JSON entry's numbers"""
+    start = time.perf_counter()
+    device = compute.resolve_device(device)
+    reset_counts()
+    work = tempfile.mkdtemp(prefix="chip_smoke_pd2d_")
+    try:
+        # (a) scripts/ci_py_driver_2d_iage.sh
+        iage_dir = os.path.join(work, "ci_py_driver_2d_iage_workdir")
+        pd2d_ci_setup(iage_dir, PD2D_IAGE, str(device))
+        files_a = ci_compare("ci_py_driver_2d_iage", iage_dir, PD2D_SETUP_FILES)
+        years = {"ci 30x30": pd2d_log_years(iage_dir)}
+
+        # (b) scripts/ci_py_driver_2d_iage_column_regions.sh
+        name = "ci_py_driver_2d_iage_column_regions"
+        col_dir = os.path.join(work, f"{name}_workdir")
+        pd2d_ci_setup(col_dir, PD2D_COLUMNS, str(device), ["--persist"])
+        files_b = ci_compare(name, col_dir, PD2D_SETUP_FILES)
+        driver = subprocess.run([os.path.join(col_dir, "nk_driver.sh")],
+                                capture_output=True, text=True,
+                                timeout=CI_DRIVER_TIMEOUT_S)
+        if driver.returncode != 0:
+            print(driver.stdout[-4000:], driver.stderr[-4000:], flush=True)
+            raise SystemExit(f"chip_smoke: {name}'s nk_driver.sh exited "
+                             f"{driver.returncode}")
+        files_b += ci_compare(name, col_dir, PD2D_SOLVE_FILES)
+        with open(os.path.join(col_dir, "Newton_state.json")) as fptr:
+            log = fptr.read().replace(col_dir, f"HOME/{name}_workdir")
+        base_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "baselines", name)
+        with open(os.path.join(base_dir, "Newton_state.json")) as fptr:
+            if log != fptr.read():
+                raise SystemExit(f"chip_smoke: {name}'s Newton_state.json "
+                                 "differs from the baseline")
+        newton = json.loads(log)["iteration"]
+        krylov = []
+        for sub in sorted(os.listdir(col_dir)):
+            if sub.startswith("krylov_"):
+                with open(os.path.join(col_dir, sub, "Krylov_state.json")) as fptr:
+                    krylov.append(json.load(fptr)["iteration"])
+        years["ci 20x3 solve"] = pd2d_log_years(col_dir)
+        phase(17, "ci_py_driver_2d_iage and its column regions",
+              ci_iage_files=files_a, column_files=files_b,
+              newton_state="identical", newton_iterations=newton,
+              krylov_iterations=krylov)
+
+        # (c) the iage year at model_params.cfg's 40 x 50, then its first
+        # 30 days against the dense route (n = 4000)
+        state_cls = pd2d_model(os.path.join(work, "iage_40x50"), {}, "iage",
+                               str(device))
+        state = state_cls("gen_init_iterate")
+        if (len(state.depth), len(state.ypos)) != (40, 50):
+            raise SystemExit("chip_smoke: model_params.cfg's grid is not "
+                             "40 x 50")
+        years["iage 40x50"] = pd2d_years(
+            captured(lambda: state.comp_fcn(None, None))[1])
+        year_m, _, _ = month_against_dense(state_cls, pd2d_iage.iage, device,
+                                           "iage 40x50")
+        years["iage 40x50 month"] = [year_m]
+
+        # (d) phosphorus at 30 x 30: 30 days against the dense route, then
+        # the eigen-regularised preconditioner through the kernel
+        phos_dir = os.path.join(work, "phosphorus_30x30")
+        state_cls = pd2d_model(phos_dir, PD2D_IAGE, "phosphorus", str(device))
+        hist = os.path.join(phos_dir, "hist.nc")
+        year_p, state, fcn = month_against_dense(
+            state_cls, phosphorus.phosphorus, device, "phosphorus 30x30", hist)
+        years["phosphorus 30x30 month"] = [year_p]
+        precond = os.path.join(phos_dir, "precond.nc")
+        state.gen_precond_jacobian(hist, precond, solver_state=None)
+        before = banded_cuda.launch_counts()
+        (res, precond_ms) = timed(lambda: fcn.apply_precond_jacobian(
+            precond, os.path.join(phos_dir, "precond_res.nc"), solver_state=None))
+        eigen_launches = [a - b for a, b in zip(banded_cuda.launch_counts(), before)]
+        solution = (res.tracer_modules[0].get_tracer_vals_all()
+                    + fcn.tracer_modules[0].get_tracer_vals_all())
+        weight = np.outer(state.depth.delta, state.ypos.delta)
+        total = float((weight * solution).sum())
+        scale = float((weight * np.abs(solution)).sum())
+        null_file = os.path.exists(os.path.join(phos_dir, "precond_null_space.nc"))
+        phase(17, "phosphorus 30x30 preconditioner", seconds=round(precond_ms / 1e3, 3),
+              factor_launches=eigen_launches[0], solve_launches=eigen_launches[1],
+              total_p_rel=abs(total) / scale, tol=PD2D_CONSERVE_TOL,
+              null_space_file=null_file)
+        if not (null_file and abs(total) <= PD2D_CONSERVE_TOL * scale
+                and min(eigen_launches) > 0
+                and np.isfinite(solution).all()):
+            raise SystemExit("chip_smoke: the phosphorus preconditioner failed "
+                             "its checks")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    devices = {y["device"] for ys in years.values() for y in ys}
+    if devices != {str(compute.resolve_device(device))}:
+        raise SystemExit(f"chip_smoke: py_driver_2d years ran on {sorted(devices)}")
+    for label, ys in years.items():
+        if not ys or min(int(y["lu_launches"]) for y in ys) == 0:
+            raise SystemExit(f"chip_smoke: a {label} Radau year ran without "
+                             "banded-kernel launches")
+        phase(17, f"radau years {label}", **year_stats(ys))
+    launches = sum(banded_cuda.launch_counts())
+    entry = banded_kernel_timings(device)
+    phase(17, "py_driver_2d file-backed (float64, banded Radau on the card)",
+          banded_lu_launches=launches, seconds=round(time.perf_counter() - start, 1))
+    return launches, entry
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(17),
-                        default=list(range(17)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(18),
+                        default=list(range(18)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -2150,6 +2585,8 @@ def main(argv=None):
         15: lambda: year_operator_phase(device),
         # 16: the file-backed test_problem path (no kernel of its own)
         16: lambda: file_backed_phase("cuda"),
+        # 17: py_driver_2d's file-backed path through the banded LU kernel
+        17: lambda: py_driver_2d_phase("cuda"),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -2158,7 +2595,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(17)):
+    if phases != set(range(18)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0
@@ -2179,6 +2616,8 @@ def main(argv=None):
     (b7_launches, b7_abs, b7_ms, b7_plain_ms, b7_bound_ms,
      b7_by) = results[13]
     v1_launches, v1_abs, v1_ms, v1_plain_ms = results[14]
+    lu_launches, (lu_abs, lu_ms, lu_plain_ms, lu_bound_ms, lu_by,
+                  lu_library_ms) = results[17]
 
     # no single PyTorch call computes an IMEX year or its table: library_ms
     # is null
@@ -2294,6 +2733,21 @@ def main(argv=None):
         "bound_ms": table_bound_ms,
         "bound_by": table_by,
         "library_ms": None,
+    }, {
+        # a lax.scan on the path, not a Pallas call; its unit of work is a
+        # refactored Radau stage: the complex factor and one solve at
+        # ci_py_driver_2d_iage's 2 x 900 x 61
+        "name": "banded_lu",
+        "route": "cuda",
+        "source": "newton_krylov_ooc_tpu_torch/csrc/banded_lu.cu",
+        "replaces": "newton_krylov_ooc_tpu/ops/banded.py:42",
+        "launches": lu_launches,
+        "max_abs_err": lu_abs,
+        "ms": lu_ms,
+        "plain_ms": lu_plain_ms,
+        "bound_ms": lu_bound_ms,
+        "bound_by": lu_by,
+        "library_ms": lu_library_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -6,10 +6,15 @@ advection, Peclet-limited horizontal diffusion, and seasonal boundary-layer
 vertical mixing.  Setup-time fields are built in numpy exactly as the JAX
 package builds them, then carried onto an explicit device and dtype.  The
 tendencies take (..., nz, ny) fields: the leading tracer axis is a written-out
-batch, where the JAX package vmaps a single-tracer function.
+batch, where the JAX package vmaps a single-tracer function.  The mixing
+coefficient takes a time of shape () or (B,) (the Radau year's three
+collocation stages in one call) and returns (..., nz-1, ny).
 
-Not ported yet: the banded and ypos-major Jacobian layouts and the history
-(numpy) twins; they serve the file-backed and Radau paths of later slices.
+The analytic Jacobians come dense (transport_jac) and in row-band storage:
+z-major cells with bandwidth ny (transport_bands) or ypos-major cells with
+bandwidth nz (transport_bands_ymajor), the narrower of which the banded
+Radau year takes.  bldepth_np and vert_mixing_coeff_np are the numpy
+twins the history files are written from.
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ...core.spatial_axis import SpatialAxis
+from ...ops.banded import dense_to_bands
 
 SEC_PER_YEAR = 365.0 * 86400.0
 
@@ -150,6 +158,18 @@ def interp(x, xp, fp):
     return val
 
 
+def bldepth(grid: Grid2D, time):
+    """boundary-layer depth per ypos column (..., ny) at time () or (B,)"""
+    return _bldepth(grid.ypos_mid, time)
+
+
+def _bldepth(ypos_mid, time):
+    time = torch.as_tensor(time, dtype=ypos_mid.dtype, device=ypos_mid.device)
+    bld_max = interp(ypos_mid, _BLD_YPOS, _BLD_MAX)
+    frac = interp(time, _BLD_TFRAC, _BLD_FRAC)
+    return BLD_MIN + (bld_max - BLD_MIN) * frac[..., None]
+
+
 def _clamped_ramp_layer_mean(edges, x0, x1, y0, y1):
     """
     per-layer average over [edges[k], edges[k+1]] of the clamped linear ramp
@@ -184,18 +204,15 @@ def vert_mixing_coeff(grid: Grid2D, time):
 def vert_mixing_coeff_arrays(depth_mid, dz_mid, dz_mid_r, ypos_mid, wvel, time):
     """vert_mixing_coeff from explicit tensors (column-local)
 
-    time: python float or 0-d tensor of the grid's dtype
+    time: python float, or a tensor of shape () or (B,), of the grid's dtype
     """
-    time = torch.as_tensor(time, dtype=ypos_mid.dtype, device=ypos_mid.device)
-    bld_max = interp(ypos_mid, _BLD_YPOS, _BLD_MAX)
-    frac = interp(time, _BLD_TFRAC, _BLD_FRAC)
-    bld = BLD_MIN + (bld_max - BLD_MIN) * frac  # (ny,)
+    bld = _bldepth(ypos_mid, time)  # (..., ny)
     # remap onto layers of the "depth_edges axis" whose edges are depth.mid,
     # vectorized over ypos columns
     log_coeff = _clamped_ramp_layer_mean(
         depth_mid[:, None],
-        bld[None, :] - 20.0,
-        bld[None, :] + 20.0,
+        bld[..., None, :] - 20.0,
+        bld[..., None, :] + 20.0,
         VERT_MIX_LOG_SHALLOW,
         VERT_MIX_LOG_DEEP,
     )
@@ -253,10 +270,10 @@ def transport_tend(grid: Grid2D, kv, v):
 # -- analytic Jacobian assembly ---------------------------------------------------
 
 
-def lateral_jac_const(grid: Grid2D):
+def lateral_jac_np(grid: Grid2D):
     """time-invariant (ncell, ncell) Jacobian of advection + horizontal mixing,
     assembled in float64 numpy from the same centered-flux stencils as the
-    tendencies, returned on the grid's device and dtype"""
+    tendencies"""
     nz = grid.depth_mid.shape[0]
     ny = grid.ypos_mid.shape[0]
     n = nz * ny
@@ -297,40 +314,139 @@ def lateral_jac_const(grid: Grid2D):
     vals = hmc * dy_r[1:]  # south-face contribution, rows y >= 1
     add(cell[:, 1:], cell[:, :-1], vals)
     add(cell[:, 1:], cell[:, 1:], -vals)
+    return jac
 
-    return torch.as_tensor(jac, dtype=grid.depth_mid.dtype,
+
+def lateral_jac_const(grid: Grid2D):
+    """lateral_jac_np on the grid's device and dtype"""
+    return torch.as_tensor(lateral_jac_np(grid), dtype=grid.depth_mid.dtype,
                            device=grid.depth_mid.device)
 
 
+def _vert_jac_indices(nz, ny, device):
+    """stencil index tensors on `device` for the vertical-mixing Jacobian
+    scatter: rows and columns of d tend[z]/d v[z+1] = dz_r[z] kv[z]
+    (z < nz-1) and of d tend[z]/d v[z-1] = dz_r[z] kv[z-1] (z > 0), with
+    the kv index of each; built on the device, so a CUDA graph captures
+    them"""
+    cell = torch.arange(nz * ny, device=device).reshape(nz, ny)
+    kv_idx = torch.arange((nz - 1) * ny, device=device).reshape(nz - 1, ny)
+    rows_up = cell[:-1, :].reshape(-1)
+    cols_up = cell[1:, :].reshape(-1)
+    k_up = kv_idx.reshape(-1)
+    rows_lo = cell[1:, :].reshape(-1)
+    cols_lo = cell[:-1, :].reshape(-1)
+    k_lo = kv_idx.reshape(-1)
+    return rows_up, cols_up, k_up, rows_lo, cols_lo, k_lo
+
+
 def vertical_jac(grid: Grid2D, kv):
-    """(ncell, ncell) Jacobian of the vertical-mixing tendency for given kv"""
+    """(ncell, ncell) Jacobian of the vertical-mixing tendency for given kv
+
+    Each stencil entry is written once (the diagonal's two terms summed
+    first, as the JAX package adds them), by indexed assignment with no
+    accumulation, so a CUDA graph captures it.
+    """
     nz = grid.depth_mid.shape[0]
     ny = grid.ypos_mid.shape[0]
     n = nz * ny
     device = kv.device
-    cell = torch.arange(n, device=device).reshape(nz, ny)
-    # d tend[z]/d v[z+1] = dz_r[z] * kv[z] (z < nz-1);
-    # d tend[z]/d v[z-1] = dz_r[z] * kv[z-1] (z > 0)
-    rows_up = cell[:-1, :].reshape(-1)
-    rows_lo = cell[1:, :].reshape(-1)
+    rows_up, cols_up, k_up, rows_lo, cols_lo, k_lo = _vert_jac_indices(
+        nz, ny, device)
     kvf = kv.reshape(-1)
     dz_r_cell = grid.dz_r[:, None].expand(nz, ny).reshape(-1)
-    up_vals = dz_r_cell[rows_up] * kvf
-    lo_vals = dz_r_cell[rows_lo] * kvf
+    up_vals = dz_r_cell[rows_up] * kvf[k_up]
+    lo_vals = dz_r_cell[rows_lo] * kvf[k_lo]
 
     jac = torch.zeros((n, n), dtype=kv.dtype, device=device)
-    jac.index_put_((rows_up, rows_lo), up_vals, accumulate=True)
-    jac.index_put_((rows_lo, rows_up), lo_vals, accumulate=True)
-    jac.index_put_((rows_up, rows_up), -up_vals, accumulate=True)
-    jac.index_put_((rows_lo, rows_lo), -lo_vals, accumulate=True)
+    jac[rows_up, cols_up] = up_vals
+    jac[rows_lo, cols_lo] = lo_vals
+    diag = torch.zeros(n, dtype=kv.dtype, device=device)
+    diag[rows_up] = diag[rows_up] - up_vals
+    diag[rows_lo] = diag[rows_lo] - lo_vals
+    jac.diagonal().copy_(diag)
     return jac
 
 
-def transport_jac(grid: Grid2D, time):
-    """(ncell, ncell) Jacobian of the full single-tracer transport tendency"""
-    return lateral_jac_const(grid) + vertical_jac(
-        grid, vert_mixing_coeff(grid, time)
-    )
+def transport_jac(grid: Grid2D, time, lateral=None):
+    """(ncell, ncell) Jacobian of the full single-tracer transport tendency;
+    lateral: lateral_jac_const(grid), passed in where the caller keeps it"""
+    if lateral is None:
+        lateral = lateral_jac_const(grid)
+    return lateral + vertical_jac(grid, vert_mixing_coeff(grid, time))
+
+
+def _on_grid(grid, arr):
+    return torch.as_tensor(arr, dtype=grid.depth_mid.dtype,
+                           device=grid.depth_mid.device)
+
+
+def lateral_bands_const(grid: Grid2D):
+    """row-band storage (ncell, 2*ny+1) of the lateral Jacobian (bw = ny),
+    z-major cells, on the grid's device and dtype"""
+    ny = grid.ypos_mid.shape[0]
+    return _on_grid(grid, dense_to_bands(lateral_jac_np(grid), ny))
+
+
+def transport_bands(grid: Grid2D, time, lateral=None):
+    """row-band (ncell, 2*ny+1) Jacobian of the full transport tendency
+
+    stencil offsets: +-1 (ypos neighbors, lateral), +-ny (depth neighbors,
+    vertical mixing), 0 (diagonal).  lateral: lateral_bands_const(grid),
+    passed in where the caller keeps it.
+    """
+    ny = grid.ypos_mid.shape[0]
+    bands = (lateral_bands_const(grid) if lateral is None else lateral).clone()
+    kv = vert_mixing_coeff(grid, time)  # (nz-1, ny)
+    up = (grid.dz_r[:-1, None] * kv).reshape(-1)  # rows z = 0..nz-2
+    lo = (grid.dz_r[1:, None] * kv).reshape(-1)   # rows z = 1..nz-1
+    bands[:-ny, 2 * ny] += up
+    bands[ny:, 0] += lo
+    bands[:-ny, ny] += -up
+    bands[ny:, ny] += -lo
+    return bands
+
+
+def ymajor_perm(nz, ny):
+    """y-major cell index (y*nz + z) -> z-major cell index (z*ny + y)"""
+    return (np.arange(ny)[:, None] + np.arange(nz)[None, :] * ny).reshape(-1)
+
+
+def lateral_bands_const_ymajor(grid: Grid2D):
+    """row-band storage (ncell, 2*nz+1) of the lateral Jacobian in
+    ypos-major cell order (cell = y*nz + z): lateral neighbors sit at
+    offsets +-nz, so the bandwidth is nz instead of ny"""
+    nz = grid.depth_mid.shape[0]
+    ny = grid.ypos_mid.shape[0]
+    perm = ymajor_perm(nz, ny)
+    jac = lateral_jac_np(grid)[np.ix_(perm, perm)]
+    return _on_grid(grid, dense_to_bands(jac, nz))
+
+
+def transport_bands_ymajor(grid: Grid2D, time, lateral=None):
+    """row-band (ncell, 2*nz+1) transport Jacobian, ypos-major cell order
+
+    stencil offsets: +-1 (depth neighbors, vertical mixing), +-nz (ypos
+    neighbors, lateral), 0 (diagonal).  The narrower of the two layouts:
+    use when nz < ny (bandwidth min(nz, ny)).  lateral:
+    lateral_bands_const_ymajor(grid), passed in where the caller keeps it.
+    """
+    nz = grid.depth_mid.shape[0]
+    ny = grid.ypos_mid.shape[0]
+    bands = (lateral_bands_const_ymajor(grid) if lateral is None
+             else lateral).clone()
+    kv = vert_mixing_coeff(grid, time)  # (nz-1, ny)
+    # row (y, z): up couples to z+1 (offset +1), lo to z-1 (offset -1)
+    up = (kv * grid.dz_r[:-1, None]).T.reshape(-1)  # (ny*(nz-1),) y-major
+    lo = (kv * grid.dz_r[1:, None]).T.reshape(-1)
+    rows_up = (torch.arange(ny, device=bands.device)[:, None] * nz
+               + torch.arange(nz - 1, device=bands.device)[None, :]).reshape(-1)
+    rows_lo = rows_up + 1
+    bands[rows_up, nz + 1] += up
+    bands[rows_lo, nz - 1] += lo
+    bands[rows_up, nz] += -up
+    bands[rows_lo, nz] += -lo
+    return bands
 
 
 def block_diag_tracers(blocks):
@@ -340,3 +456,31 @@ def block_diag_tracers(blocks):
     for ind, blk in enumerate(blocks):
         jac[ind * n:(ind + 1) * n, ind * n:(ind + 1) * n] = blk
     return jac
+
+
+# -- numpy twins for history/stats fields (exact host arithmetic) -----------------
+
+
+def bldepth_np(ypos, time):
+    bld_max = np.interp(ypos.mid, _BLD_YPOS, _BLD_MAX)
+    frac = np.interp(time, _BLD_TFRAC, _BLD_FRAC)
+    return BLD_MIN + (bld_max - BLD_MIN) * frac
+
+
+def vert_mixing_coeff_np(depth, ypos, wvel, time):
+    """numpy twin of vert_mixing_coeff (per-column conservative remap)"""
+    bld = bldepth_np(ypos, time)
+    edges_axis = SpatialAxis("depth_edges", depth.mid)
+    res = np.empty((len(depth) - 1, len(ypos)))
+    cache = {}
+    for j, bld_j in enumerate(bld):
+        if bld_j not in cache:
+            cache[bld_j] = edges_axis.remap_linear_interpolant(
+                np.array([bld_j - 20.0, bld_j + 20.0]),
+                np.array([VERT_MIX_LOG_SHALLOW, VERT_MIX_LOG_DEEP]),
+            )
+        res[:, j] = cache[bld_j]
+    res = np.exp(res)
+    peclet_p5 = 0.5 * depth.delta_mid[:, None] * np.abs(wvel[1:-1, :]) / res
+    res *= np.where(peclet_p5 > 1.0, peclet_p5, 1.0)
+    return res * depth.delta_mid_r[:, None]

@@ -53,8 +53,9 @@ ctypes loads.  The build knows every kernel source of the port (SOURCES),
 the 3D transport years of ops/transport3d_cuda.py and
 ops/transport3d_stream_cuda.py, the IMEX step block of
 ops/imex_block_cuda.py, the stream sweep of
-ops/transport3d_sweep_cuda.py and the 3D step block of
-ops/transport3d_block_cuda.py included, so one build_libraries() call
+ops/transport3d_sweep_cuda.py, the 3D step block of
+ops/transport3d_block_cuda.py and the banded LU of ops/banded_cuda.py
+included, so one build_libraries() call
 compiles them all at once.
 """
 
@@ -85,6 +86,7 @@ SOURCES = {
     "iage_block": "iage_block.cu",
     "transport3d_sweep": "transport3d_sweep.cu",
     "transport3d_block": "transport3d_block.cu",
+    "banded_lu": "banded_lu.cu",
 }
 INCLUDES = {
     "iage_year": ("imex_common.cuh", "imex_table.cuh"),
@@ -97,6 +99,7 @@ INCLUDES = {
                           "transport3d_common.cuh"),
     "transport3d_block": ("transport3d_stream_passes.cuh",
                           "transport3d_common.cuh"),
+    "banded_lu": (),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

@@ -1,8 +1,9 @@
-"""adaptive Radau IIA (order 5) stiff ODE integrator, dense mode, in PyTorch.
+"""adaptive Radau IIA (order 5) stiff ODE integrator in PyTorch, dense and
+banded.
 
-Port of newton_krylov_ooc_tpu/ops/radau.py's dense branch: the classic
-RADAU5 method (Hairer & Wanner, "Solving ODEs II", ch. IV.8) with dense LU
-stage solves (one real and one complex system), Jacobian and LU reuse, the
+Port of newton_krylov_ooc_tpu/ops/radau.py: the classic RADAU5 method
+(Hairer & Wanner, "Solving ODEs II", ch. IV.8) with LU stage solves (one
+real and one complex system), Jacobian and LU reuse, the
 embedded order-3 error estimator, the predictive (Gustafsson) step-size
 controller, and output at t_eval from the collocation polynomial.  It makes
 the JAX integrator's decisions in the same order: its step attempts, its
@@ -12,7 +13,7 @@ The JAX integrator branches with ``lax.cond`` inside a ``lax.while_loop``.
 On a card a read of a flag costs a sync, so a step attempt is written as
 fixed-shape, branch-free stages over the integrator's state, each
 ``lax.cond`` computing both outcomes and selecting with ``torch.where``, the
-LUs through ``torch.linalg.lu_factor_ex`` and ``lu_solve`` (no read-back):
+LUs without a read-back:
 
 - a fast attempt refactors its LUs where they are stale, runs
   FAST_NEWTON_ITERS collocation Newton iterations (a converged mask freezes
@@ -28,10 +29,23 @@ ATTEMPTS_PER_REPLAY of them may overshoot.  On a card each stage is
 captured once in a CUDA graph; the host replays the run of fast attempts,
 reads one small flag vector, and replays the service stages it names.  On
 the CPU the same stages run eagerly, every branch computed as on a card.
-States are flat (n,) vectors and the Jacobian a dense (n, n)
-matrix, by forward-mode AD with its n unit tangents as one batch (the JAX
-integrator takes jax.jacfwd).  The banded (``jac_bands``) mode of the JAX integrator is not
-ported.
+States are flat (n,) vectors.
+
+Dense mode: the Jacobian is a dense (n, n) matrix, by forward-mode AD with
+its n unit tangents as one batch (the JAX integrator takes jax.jacfwd), or
+the caller's `jac`; the LUs go through ``torch.linalg.lu_factor_ex`` and
+``lu_solve``.  Banded mode (``jac_bands``, ``bandwidth``): the Jacobian is
+the caller's analytic row-band blocks (n_blocks, m, 2bw+1), block-diagonal
+over e.g. tracers and banded within, and the stage systems take the
+pivot-free banded LU of ops/banded.py natively in complex for the complex
+one, as the JAX integrator does off the TPU.  The state then keeps the
+factored real and complex bands in place of the dense LUs and pivots; on a
+card the factor and the solves are the hand-written kernel
+(csrc/banded_lu.cu).  Each stage's factor and solves are launched on
+every replay and read a device flag (stale LUs, a live Newton iteration,
+a converged attempt's error estimate): the work the attempt does not need
+returns at once, and its masked result is not used; the CPU skips the
+same work on the same flags.
 """
 
 from __future__ import annotations
@@ -44,6 +58,9 @@ import gc
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwad
+
+from . import banded_cuda
+from .banded import banded_lu_factor_blocks, banded_lu_solve_blocks, bands_add_diag
 
 # -- collocation constants (float64 numpy, derived at import) -----------------
 
@@ -94,6 +111,7 @@ ATTEMPTS_PER_REPLAY = 2
 STAGES = ("attempts", "finish", "refresh_jac")
 
 LU_KEYS = ("lu_r", "piv_r", "lu_c", "piv_c")
+BANDED_LU_KEYS = ("lu_r", "lu_c")
 
 
 def _rms_norm(x):
@@ -133,7 +151,7 @@ def forward_jacobian(fun, t, y):
 
 
 class Radau5:
-    """dense-mode Radau IIA(5) for one problem: fun, n, t_eval, dtype, device
+    """Radau IIA(5) for one problem: fun, n, t_eval, dtype, device
 
     fun(t, y) -> dy/dt must broadcast over a leading batch axis: it is called
     with t of shape () and y of shape (n,), and with t of shape (B,) and y of
@@ -141,6 +159,9 @@ class Radau5:
     of host reads and data-dependent Python branches: it is differentiated
     by forward-mode AD and, on a card, captured in a CUDA graph.
     jac(t, y) -> (n, n) defaults to forward_jacobian(fun, t, y).
+    jac_bands(t, y) -> (n_blocks, m, 2*bandwidth+1) with n_blocks * m == n
+    selects the banded mode (bandwidth is required with it); it is called
+    with t of shape () and y of shape (n,).
 
     `integrate(y0)` may be called many times; the state lives in fixed
     buffers, and on a card the stages' graphs are captured at the first
@@ -162,6 +183,8 @@ class Radau5:
         max_step=np.inf,
         max_attempts=1_000_000,
         lu_reuse_factor=1.2,
+        jac_bands=None,
+        bandwidth=None,
     ):
         self.fun = fun
         self.n = int(n)
@@ -170,7 +193,17 @@ class Radau5:
         self.cplx_dtype = (
             torch.complex128 if dtype == torch.float64 else torch.complex64
         )
-        self.jac = functools.partial(forward_jacobian, fun) if jac is None else jac
+        self.banded = jac_bands is not None
+        if self.banded:
+            if bandwidth is None:
+                raise ValueError("bandwidth is required with jac_bands")
+            self.bandwidth = int(bandwidth)
+            self.jac = jac_bands
+            self.lu_keys = BANDED_LU_KEYS
+        else:
+            self.jac = (functools.partial(forward_jacobian, fun) if jac is None
+                        else jac)
+            self.lu_keys = LU_KEYS
         self.rtol = float(rtol)
         self.atol = float(atol)
         self.max_step = float(max_step)
@@ -198,11 +231,25 @@ class Radau5:
 
         self.state = None  # fixed buffers, allocated at the first integrate
         self.graphs = None  # stage name -> CUDA graph (on a card)
+        # stage name -> (factor, solve) banded-kernel launches in its graph
+        self.graph_launches = {}
         self.runs = collections.Counter()  # stage name -> runs, all years
 
     # -- linear algebra ----------------------------------------------------------
 
+    def _shifted_bands(self, h, jac_mat):
+        """the real and complex stage matrices (MU_REAL/h I - J) and
+        (MU_COMPLEX/h I - J) of banded J"""
+        neg = -jac_mat
+        return (bands_add_diag(neg, MU_REAL / h),
+                bands_add_diag(neg.to(self.cplx_dtype),
+                               self.mu_c / h.to(self.cplx_dtype)))
+
     def _factor_lu(self, h, jac_mat):
+        """the stage LUs, in the order of self.lu_keys"""
+        if self.banded:
+            return tuple(banded_lu_factor_blocks(m)
+                         for m in self._shifted_bands(h, jac_mat))
         lu_r, piv_r, _ = torch.linalg.lu_factor_ex(MU_REAL / h * self.eye - jac_mat)
         lu_c, piv_c, _ = torch.linalg.lu_factor_ex(
             self.mu_c / h.to(self.cplx_dtype) * self.eye_c
@@ -210,9 +257,17 @@ class Radau5:
         )
         return lu_r, piv_r, lu_c, piv_c
 
-    @staticmethod
-    def _solve(lu, piv, rhs):
-        return torch.linalg.lu_solve(lu, piv, rhs.unsqueeze(-1)).squeeze(-1)
+    def _solve_lu(self, st, part, rhs, active):
+        """solve the real (part "r") or complex ("c") stage system; banded,
+        only where `active` (the result is masked elsewhere: the kernel
+        returns rhs unsolved)"""
+        lu = st["lu_" + part]
+        if self.banded:
+            n_blocks = lu.shape[0]
+            return banded_lu_solve_blocks(lu, rhs.reshape(n_blocks, -1),
+                                          active=active).reshape(-1)
+        return torch.linalg.lu_solve(lu, st["piv_" + part],
+                                     rhs.unsqueeze(-1)).squeeze(-1)
 
     # -- initial state -----------------------------------------------------------
 
@@ -239,9 +294,16 @@ class Radau5:
             torch.clamp(t_end - t0, max=self.max_step),
         )
         jac0 = self.jac(t0, y0).to(dtype)
-        lu_r, piv_r, lu_c, piv_c = self._factor_lu(
+        if self.banded:
+            width = 2 * self.bandwidth + 1
+            if jac0.dim() != 3 or jac0.shape[-1] != width or \
+                    jac0.shape[0] * jac0.shape[1] != self.n:
+                raise ValueError(
+                    f"jac_bands gave shape {tuple(jac0.shape)}; expected "
+                    f"(n_blocks, m, {width}) with n_blocks * m == {self.n}")
+        lus = dict(zip(self.lu_keys, self._factor_lu(
             torch.clamp(h_init, min=10 * self.eps), jac0
-        )
+        )))
 
         def scalar(val, dt=dtype):
             return torch.as_tensor(val, dtype=dt, device=self.device)
@@ -258,10 +320,7 @@ class Radau5:
             "error_norm_old": scalar(-1.0),
             "jac_mat": jac0,
             "current_jac": scalar(True, torch.bool),
-            "lu_r": lu_r,
-            "piv_r": piv_r,
-            "lu_c": lu_c,
-            "piv_c": piv_c,
+            **lus,
             "need_lu": scalar(True, torch.bool),
             "have_sol": false.clone(),
             "cont_q": torch.zeros((self.n, 3), dtype=dtype, device=self.device),
@@ -326,8 +385,8 @@ class Radau5:
                 tif[1] - (mu_a * w[1] - mu_b * w[2]) / h,
                 tif[2] - (mu_b * w[1] + mu_a * w[2]) / h,
             )
-            dw_real = self._solve(st["lu_r"], st["piv_r"], rhs_real)
-            dw_c = self._solve(st["lu_c"], st["piv_c"], rhs_c)
+            dw_real = self._solve_lu(st, "r", rhs_real, active)
+            dw_c = self._solve_lu(st, "c", rhs_c, active)
             dw = torch.stack([dw_real, dw_c.real, dw_c.imag])
 
             dw_norm = _rms_norm(dw / scale)
@@ -371,12 +430,12 @@ class Radau5:
         y_new = y + z[-1]
         ze = (z.T @ self.e_arr) / h
         scale = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
-        error = self._solve(st["lu_r"], st["piv_r"], st["f"] + ze)
+        error = self._solve_lu(st, "r", st["f"] + ze, converged)
         error_norm = _rms_norm(error / scale)
         stabilise = converged & st["rejected"] & (error_norm > 1)
         # the stabilising and the accepted step's tendencies in one call
         f_stab, f_new = fun(torch.stack([t, t_new]), torch.stack([y + error, y_new]))
-        error2 = self._solve(st["lu_r"], st["piv_r"], f_stab + ze)
+        error2 = self._solve_lu(st, "r", f_stab + ze, stabilise)
         error_norm = torch.where(stabilise, _rms_norm(error2 / scale), error_norm)
         safety = 0.9 * (2 * NEWTON_MAXITER + 1) / (
             2 * NEWTON_MAXITER + n_iter.to(dtype)
@@ -465,16 +524,19 @@ class Radau5:
         y_poly = st["cont_base"][:, None] + st["cont_q"] @ xp  # (n, 3)
         z0 = torch.where(st["have_sol"], (y_poly - st["y"][:, None]).T, 0.0)
 
-        st = {**st, **self._refactored(st, go, h)}
+        refactored = self._refactored(st, go, h)
+        st = {**st, **refactored}
         no = torch.zeros_like(go)
+        # an attempt that is not due starts settled: its Newton iterations
+        # are masked (and, banded, their solves skipped)
         carry = (self.ti_mat @ z0, z0, torch.full_like(h, -1.0),
-                 torch.zeros_like(h), no, no, torch.zeros_like(st["n_att"]))
+                 torch.zeros_like(h), no, ~go, torch.zeros_like(st["n_att"]))
         carry = self._newton(st, h, carry, range(FAST_NEWTON_ITERS))
         settled = carry[4] | carry[5]
         stall = go & ~settled
         w, z, dw_norm_old, rate, _conv, _div, n_iter = carry
         return {
-            **{key: st[key] for key in LU_KEYS + ("nlu", "need_lu")},
+            **refactored,
             **self._decide(st, go & settled, step, carry),
             "stalled": st["stalled"] | stall,
             "nw_w": torch.where(stall, w, st["nw_w"]),
@@ -510,12 +572,20 @@ class Radau5:
         })
 
     def _refactored(self, st, live, h):
-        """the attempt's LUs, refactored at its step h where stale and `live`"""
+        """the attempt's LUs, refactored at its step h where stale and `live`:
+        dense, both outcomes computed and one selected; banded, factored in
+        place into the state's buffers only where due (on a card the
+        kernel reads the flag)"""
         due = st["need_lu"] & live
-        new = {
-            key: torch.where(due, val, st[key])
-            for key, val in zip(LU_KEYS, self._factor_lu(h, st["jac_mat"]))
-        }
+        if self.banded:
+            new = {}
+            for key, mat in zip(self.lu_keys, self._shifted_bands(h, st["jac_mat"])):
+                banded_lu_factor_blocks(mat, out=st[key], due=due)
+        else:
+            new = {
+                key: torch.where(due, val, st[key])
+                for key, val in zip(self.lu_keys, self._factor_lu(h, st["jac_mat"]))
+            }
         new["nlu"] = st["nlu"] + due.to(st["nlu"].dtype)
         new["need_lu"] = st["need_lu"] & ~due
         return new
@@ -563,9 +633,16 @@ class Radau5:
         gc.disable()
         try:
             for name in STAGES:
+                # a capture records the banded kernels' launches without
+                # running them: they count when the graph replays
+                before = banded_cuda.launch_counts()
                 graphs[name] = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graphs[name]):
                     self._stage(name)(self.state)
+                after = banded_cuda.launch_counts()
+                self.graph_launches[name] = tuple(
+                    a - b for a, b in zip(after, before))
+                banded_cuda.set_launch_counts(*before)
         finally:
             if gc_was_enabled:
                 gc.enable()
@@ -575,6 +652,7 @@ class Radau5:
         self.runs[name] += 1
         if self.graphs is not None:
             self.graphs[name].replay()
+            banded_cuda.add_launches(*self.graph_launches[name])
         else:
             self._stage(name)(self.state)
 
@@ -632,9 +710,10 @@ class Radau5:
 def radau5_integrate(fun, t_span, y0, t_eval, **kwargs):
     """integrate dy/dt = fun(t, y) over t_span, reporting y at t_eval
 
-    The JAX package's `radau5_integrate` signature, dense mode: one Radau5
-    built for y0's dtype and device and run once.  See Radau5 for fun's
-    contract and the keyword arguments.
+    The JAX package's `radau5_integrate` signature: one Radau5 built for
+    y0's dtype and device and run once.  See Radau5 for fun's contract and
+    the keyword arguments (jac_bands and bandwidth select the banded
+    mode).
     """
     y0 = torch.as_tensor(y0)
     solver = Radau5(

@@ -195,9 +195,10 @@ def test_build_libraries_one_nvcc_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(imex_cuda, "BUILD_DIR", tmp_path / "build")
 
     built = imex_cuda.build_libraries()
-    assert sorted(built) == ["iage_block", "iage_year", "phosphorus_year",
-                             "transport3d_block", "transport3d_stream",
-                             "transport3d_sweep", "transport3d_year"]
+    assert sorted(built) == ["banded_lu", "iage_block", "iage_year",
+                             "phosphorus_year", "transport3d_block",
+                             "transport3d_stream", "transport3d_sweep",
+                             "transport3d_year"]
     for name, (path, seconds) in built.items():
         assert path.parent == tmp_path / "build" and path.name.startswith(name)
         assert path.exists() and seconds > 0.0

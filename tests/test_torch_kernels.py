@@ -1,7 +1,8 @@
 """the CUDA kernels (csrc/iage_year.cu with its PCR variant B1v1,
 csrc/phosphorus_year.cu, csrc/transport3d_year.cu,
 csrc/transport3d_stream.cu, csrc/iage_block.cu, csrc/transport3d_sweep.cu,
-csrc/transport3d_block.cu) against their plain PyTorch versions; need an
+csrc/transport3d_block.cu, csrc/banded_lu.cu) against their plain PyTorch
+versions; need an
 NVIDIA Hopper card and nvcc, and skip without a card
 
     python -m pytest tests/test_torch_kernels.py -q     # on the card
@@ -26,6 +27,8 @@ from newton_krylov_ooc_tpu_torch.models.py_driver_2d.incore import (
     PhosphorusKernel,
 )
 from newton_krylov_ooc_tpu_torch.ops import (
+    banded,
+    banded_cuda,
     imex_block_cuda,
     imex_cuda,
     transport3d_block_cuda,
@@ -1257,3 +1260,141 @@ def test_iage_year_v1_kernel_matches_plain_and_b1(cuda_device, nz, ny,
     assert torch.isfinite(y_v1).all()
     assert float((y_v1 - y_p).abs().max()) / scale < TOL
     assert float((y_v1 - y_b1).abs().max()) / scale < TOL
+
+
+# -- the banded LU (csrc/banded_lu.cu) ------------------------------------------
+
+# the kernel against its plain twin, relative to the plain result's max: the
+# same eliminations, FMA contraction and another order of the solves' sums
+BANDED_TOL = {torch.float64: 1e-12, torch.complex128: 1e-12,
+              torch.float32: 1e-5, torch.complex64: 1e-5}
+# (blocks, rows, half-width): ci_py_driver_2d_iage's stage systems (2 x
+# 900 x 61), ci_py_driver_2d_iage_column_regions' (2 x 60 x 7), phosphorus
+# at 30 x 30 (1 x 2700 x 181), the sharded 2D year's vertical
+# preconditioner (tracers x columns of nz rows, 7 bands), iage at 40 x 50
+BANDED_SHAPES = [(2, 900, 30), (2, 60, 3), (1, 2700, 90), (96, 24, 3),
+                 (2, 2000, 40)]
+
+
+def _dominant_bands(rng, n_blocks, m, bw, dtype):
+    """(n_blocks, m, 2bw+1) diagonally dominant row-band matrices, zero
+    outside the matrix"""
+    cplx = dtype.is_complex
+    vals = rng.uniform(-1.0, 1.0, (n_blocks, m, 2 * bw + 1))
+    if cplx:
+        vals = vals + 1j * rng.uniform(-1.0, 1.0, vals.shape)
+    rows = np.arange(m)[:, None] + np.arange(2 * bw + 1)[None, :] - bw
+    vals[:, (rows < 0) | (rows >= m)] = 0.0
+    vals[:, :, bw] = np.abs(vals).sum(axis=-1) + 1.0
+    return vals
+
+
+def _banded_rel(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", list(BANDED_TOL))
+@pytest.mark.parametrize("n_blocks, m, bw", BANDED_SHAPES)
+def test_banded_lu_kernel_matches_plain(cuda_device, n_blocks, m, bw, dtype):
+    rng = np.random.default_rng(m + bw)
+    bands = torch.as_tensor(_dominant_bands(rng, n_blocks, m, bw, dtype),
+                            dtype=dtype, device=cuda_device)
+    rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (3, n_blocks, m)),
+                          dtype=dtype, device=cuda_device)
+    f0, s0 = banded_cuda.launch_counts()
+    lu = banded.banded_lu_factor_blocks(bands)
+    x = banded.banded_lu_solve_blocks(lu, rhs)
+    torch.cuda.synchronize()
+    assert banded_cuda.launch_counts() == (f0 + 1, s0 + 1)
+    lu_p = banded.banded_lu_factor_plain(bands)
+    x_p = banded.banded_lu_solve_plain(lu_p, rhs)
+    tol = BANDED_TOL[dtype]
+    assert _banded_rel(lu, lu_p) < tol
+    assert _banded_rel(x, x_p) < tol
+    # one right-hand side a block, and the kernel's solve on the plain
+    # factors
+    x1 = banded.banded_lu_solve_blocks(lu, rhs[0])
+    assert _banded_rel(x1, x_p[0]) < tol
+    assert _banded_rel(banded.banded_lu_solve_blocks(lu_p, rhs), x_p) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_banded_lu_kernel_window_off_shared_memory(cuda_device, dtype):
+    """phosphorus's complex system at 40 x 50 (1 x 6000 x 241): the
+    complex128 window does not fit in shared memory and the factor works
+    in device memory; the float64 one fits"""
+    rng = np.random.default_rng(3)
+    m, bw = 6000, 120
+    _threads, shared, _smem = banded_cuda.factor_plan(dtype, bw, cuda_device)
+    assert shared == (dtype == torch.float64)
+    bands = torch.as_tensor(_dominant_bands(rng, 1, m, bw, dtype),
+                            dtype=dtype, device=cuda_device)
+    rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (8, 1, m)), dtype=dtype,
+                          device=cuda_device)
+    lu = banded.banded_lu_factor_blocks(bands)
+    x = banded.banded_lu_solve_blocks(lu, rhs)
+    lu_p = banded.banded_lu_factor_plain(bands)
+    assert _banded_rel(lu, lu_p) < BANDED_TOL[dtype]
+    assert _banded_rel(x, banded.banded_lu_solve_plain(lu_p, rhs)) < \
+        BANDED_TOL[dtype]
+
+
+def test_banded_lu_kernel_factors_and_solves_only_where_due(cuda_device):
+    """the flags the Radau stages pass: nothing factored where due is
+    False, rhs returned unsolved where active is False"""
+    rng = np.random.default_rng(5)
+    bands = torch.as_tensor(_dominant_bands(rng, 2, 60, 3, torch.float64),
+                            device=cuda_device)
+    out = torch.full_like(bands, 7.0)
+    no = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    banded.banded_lu_factor_blocks(bands, out=out, due=no)
+    assert bool((out == 7.0).all())
+    banded.banded_lu_factor_blocks(bands, out=out, due=~no)
+    assert torch.equal(out, banded.banded_lu_factor_blocks(bands))
+    rhs = torch.ones((2, 60), dtype=torch.float64, device=cuda_device)
+    assert torch.equal(banded.banded_lu_solve_blocks(out, rhs, active=no), rhs)
+    assert torch.equal(banded.banded_lu_solve_blocks(out, rhs, active=~no),
+                       banded.banded_lu_solve_blocks(out, rhs))
+
+
+def test_banded_lu_kernel_rejects_what_it_cannot_take(cuda_device):
+    bands = torch.as_tensor(_dominant_bands(np.random.default_rng(1), 2, 20,
+                                            3, torch.float64),
+                            device=cuda_device)
+    rhs = torch.ones((2, 20), dtype=torch.float64, device=cuda_device)
+    before = banded_cuda.launch_counts()
+    with pytest.raises(ValueError, match="takes"):
+        banded_cuda.factor_blocks(bands.to(torch.float16))
+    with pytest.raises(ValueError, match="cpu"):
+        banded_cuda.factor_blocks(bands.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        banded_cuda.factor_blocks(bands[0])
+    with pytest.raises(ValueError, match="shape"):
+        banded_cuda.factor_blocks(bands[..., :6])
+    with pytest.raises(ValueError, match="contiguous"):
+        banded_cuda.factor_blocks(bands.transpose(0, 1).contiguous()
+                                  .transpose(0, 1))
+    with pytest.raises(ValueError, match="half-width"):
+        banded_cuda.factor_blocks(torch.zeros(
+            (1, 400, 2 * banded_cuda.MAX_BANDWIDTH + 3), dtype=torch.float64,
+            device=cuda_device))
+    lu = banded_cuda.factor_blocks(bands)
+    before = (before[0] + 1, before[1])
+    with pytest.raises(ValueError, match="rhs is"):
+        banded_cuda.solve_blocks(lu, rhs.to(torch.float32))
+    with pytest.raises(ValueError, match="rhs is"):
+        banded_cuda.solve_blocks(lu, rhs.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        banded_cuda.solve_blocks(lu, rhs[:, :19])
+    with pytest.raises(ValueError, match="contiguous"):
+        banded_cuda.solve_blocks(lu, torch.ones((20, 2), dtype=torch.float64,
+                                                device=cuda_device).T)
+    with pytest.raises(ValueError, match="due"):
+        banded_cuda.factor_blocks(bands, out=torch.empty_like(bands),
+                                  due=torch.ones((), device=cuda_device))
+    with pytest.raises(ValueError, match="out"):
+        banded_cuda.factor_blocks(bands, out=bands)
+    with pytest.raises(ValueError, match="active"):
+        banded_cuda.solve_blocks(lu, rhs, active=torch.ones((2,), dtype=torch.bool,
+                                                            device=cuda_device))
+    assert banded_cuda.launch_counts() == before

@@ -20,6 +20,12 @@ counts within COUNT_BOUNDS of JAX's, bounds set from these readings over
                 -0.68%, +2.80%); JAX's own under 40 nudges: 599-620,
                 4273-4520, 125-154
 
+In banded mode (jac_bands, the py_driver_2d modules' analytic row-band
+Jacobians) on JAX's phosphorus test (tests/test_phosphorus_bands.py:102,
+a month at rtol = atol = 1e-8, z-major at 8 x 4 and y-major at 4 x 8) the
+port takes JAX's step sequence exactly: 41 attempts, 291 nfev, 17 LUs at
+8 x 4 and 31, 222, 14 at 4 x 8, values within 1e-15 of max|y|.
+
 The CPU runs the branch-free stages that a card replays from its graphs.
 """
 
@@ -35,12 +41,17 @@ from newton_krylov_ooc_tpu.core.spatial_axis import (
     spatial_axis_defn_dict as jax_axis_defn_dict,
     spatial_axis_from_defn_dict as jax_axis_from_defn_dict,
 )
+from newton_krylov_ooc_tpu.models.py_driver_2d.phosphorus import (
+    phosphorus as jax_phosphorus,
+)
 from newton_krylov_ooc_tpu.models.test_problem import physics as jax_physics
 from newton_krylov_ooc_tpu.ops.radau import radau5_integrate as jax_radau
 from newton_krylov_ooc_tpu_torch.core.spatial_axis import (
     spatial_axis_defn_dict,
     spatial_axis_from_defn_dict,
 )
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.convert import grid_from_numpy
+from newton_krylov_ooc_tpu_torch.models.py_driver_2d.phosphorus import phosphorus
 from newton_krylov_ooc_tpu_torch.models.test_problem import physics
 from newton_krylov_ooc_tpu_torch.ops import radau
 from newton_krylov_ooc_tpu_torch.ops.radau import Radau5, radau5_integrate
@@ -283,3 +294,83 @@ def test_integrator_reuse_and_refusals():
     with pytest.raises(TypeError):
         Radau5(fun, 3, span, t_eval, rtol=rtol, atol=atol)
     assert jax.config.jax_enable_x64
+
+
+# -- banded mode ------------------------------------------------------------------
+
+
+def _phosphorus_banded(nz, ny, with_jax=True):
+    """tests/test_phosphorus_bands.py's month of phosphorus at (nz, ny):
+    JAX's banded integration (with_jax), and the port's tendency, banded
+    Jacobian, permutation and y0 on the same grid"""
+    from tests.test_phosphorus_bands import SPY, _setup
+
+    grid, static_args = _setup(nz, ny)
+    port_grid = grid_from_numpy({k: np.asarray(v) for k, v in grid._asdict().items()},
+                                device="cpu", dtype=torch.float64)
+    dm = np.asarray(grid.depth_mid)
+    y0 = np.stack([np.broadcast_to(np.interp(dm, xp, fp)[:, None], (nz, ny))
+                   for xp, fp in (([130.0, 260.0], [5.5e-3, 4.1]),
+                                  ([95.0, 140.0], [7.1e-2, 1.5e-4]),
+                                  ([170.0, 250.0], [1.8e-2, 7.9e-4]))]).reshape(-1)
+    t1 = SPY / 12
+    bw, perm = jax_phosphorus.band_info(grid)
+    inv = np.argsort(perm)
+    fun = jax_phosphorus.build_tend(grid, static_args, jnp.zeros(0))
+    jac_b = jax_phosphorus.build_jac_bands(grid, static_args, jnp.zeros(0))
+    perm_j, inv_j = jnp.asarray(perm), jnp.asarray(inv)
+    y_jax = counts_jax = None
+    if with_jax:
+        ys_j, info_j = jax.jit(lambda y: jax_radau(
+            lambda t, yb: fun(t, yb[inv_j])[perm_j], (0.0, t1), y,
+            jnp.linspace(0.0, t1, 2), rtol=1e-8, atol=1e-8, jac_bands=jac_b,
+            bandwidth=bw))(jnp.asarray(y0[perm]))
+        y_jax = np.asarray(ys_j[-1])[inv]
+        counts_jax = {k: int(info_j[k]) for k in COUNTS}
+    port_fun = phosphorus.build_tend(port_grid, static_args, None)
+    perm_t, inv_t = torch.as_tensor(perm), torch.as_tensor(inv)
+
+    def fun_banded(t, yb):
+        return port_fun(t, yb[..., inv_t])[..., perm_t]
+
+    port = dict(fun=fun_banded, t1=t1, y0=y0[perm], bw=bw, inv=inv,
+                jac_bands=phosphorus.build_jac_bands(port_grid, static_args, None),
+                dense=(port_fun, phosphorus.build_jac(port_grid, static_args, None),
+                       y0))
+    return y_jax, counts_jax, port
+
+
+@pytest.mark.parametrize("nz, ny", [(8, 4), (4, 8)])
+def test_banded_mode_matches_jax_and_dense(nz, ny):
+    """the banded Radau year against JAX's banded one: the same attempts,
+    nfev and LUs, values within 1e-10 of max|y|; z-major against the
+    port's dense mode within JAX's 1e-7 (tests/test_phosphorus_bands.py)"""
+    y_jax, counts_jax, port = _phosphorus_banded(nz, ny)
+    solver = Radau5(port["fun"], len(port["y0"]), (0.0, port["t1"]),
+                    np.linspace(0.0, port["t1"], 2), device="cpu", rtol=1e-8,
+                    atol=1e-8, jac_bands=port["jac_bands"], bandwidth=port["bw"])
+    ys, info = solver.integrate(torch.as_tensor(port["y0"]))
+    assert info["success"]
+    assert {k: info[k] for k in COUNTS} == counts_jax
+    y_b = ys[-1].numpy()[port["inv"]]
+    assert np.abs(y_b - y_jax).max() < 1e-10 * np.abs(y_jax).max()
+    if nz < ny:
+        return
+    fun, jac, y0 = port["dense"]
+    ys_d, info_d = radau5_integrate(fun, (0.0, port["t1"]), torch.as_tensor(y0),
+                                    np.linspace(0.0, port["t1"], 2), rtol=1e-8,
+                                    atol=1e-8, jac=jac)
+    assert info_d["success"]
+    y_d = ys_d[-1].numpy()
+    assert np.abs(y_b - y_d).max() / np.abs(y_d).max() < 1e-7
+
+
+def test_banded_mode_refusals():
+    _y_jax, _counts, port = _phosphorus_banded(4, 3, with_jax=False)
+    args = (port["fun"], len(port["y0"]), (0.0, 86400.0), [0.0, 86400.0])
+    with pytest.raises(ValueError, match="bandwidth"):
+        Radau5(*args, device="cpu", jac_bands=port["jac_bands"])
+    solver = Radau5(*args, device="cpu", jac_bands=port["jac_bands"],
+                    bandwidth=port["bw"] + 1)
+    with pytest.raises(ValueError, match="jac_bands gave shape"):
+        solver.integrate(torch.as_tensor(port["y0"]))
