@@ -51,7 +51,7 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     iterate's tenth timed for its JSON entry; the year's table (B1's table
     kernel at one channel and a zero diagonal) with its bytes and build ms;
   5 the phosphorus Newton-Krylov solve (PhosphorusKernel +
-    NewtonKrylovInCore, 365 steps a year, float32, F on the kernel and
+    NewtonKrylovInCore, 146 steps a year, float32, F on the kernel and
     JVPs by forward mode), checked for convergence, positivity, launches
     (one table for the solve's F years), and against a float64 plain
     evaluation of F at the solution;
@@ -174,11 +174,16 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     passing, precond_null_space.nc written and total P conserved within
     1e-10; every Radau year gated on banded_lu launches; printed: seconds,
     attempts, tendency evaluations, LUs and banded_lu launches a year, ms
-    an attempt; then banded_lu against its plain twin at the path's shapes
-    (iage 30 x 30 and 40 x 50, phosphorus 30 x 30) in float64 and
-    complex128 within 1e-12, with factor and solve us, the plain twin's
-    ms, the dense torch.linalg LU of the same matrices (library_ms) and
-    the bound.
+    an attempt, the 30 x 30 and 40 x 50 years' attempts and LUs beside
+    those of the design before one barrier a pivot; then banded_lu
+    against its plain twin at the path's shapes (iage 30 x 30 and 40 x 50,
+    phosphorus 30 x 30) in float64 and complex128 within 1e-12, with
+    factor and solve us beside that design's, the plain twin's ms, the
+    dense torch.linalg LU of the same matrices (library_ms), the bound and
+    the factor's plan (threads, shared bytes, cluster size, where its
+    window lives), and the pair launches (both stage systems in one factor
+    launch and one solve launch) against the twins within 1e-12, with
+    their us.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
 year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
@@ -276,10 +281,11 @@ F64_TOL = 1e-4   # kernel vs f64 plain: Kahan keeps f32 near f64
 SOLVE_TOL = 1e-5
 REPS = 5
 # the JAX in-core phosphorus test's tolerance (tests/test_imex_incore.py) at
-# half its 730 steps a year: the forward-mode JVPs are plain PyTorch on the
-# card, host-bound, and at 730 steps took 228-292 s on one H100, most of
-# this script's time
-PHOS_STEPS = 365
+# a fifth of its 730 steps a year: the forward-mode JVPs are plain PyTorch
+# on the card, host-bound, and at 730 steps took 228-292 s on one H100,
+# most of this script's time; at 365 they took 105-139 s, and on a slower
+# host the whole script ran past its 1,200 s
+PHOS_STEPS = 146
 PHOS_SOLVE_TOL = 1e-4
 PHOS_MAX_NEWTON = 4
 # the JAX bench's gx3 3D spin-up (cli/irf3d_spinup.py)
@@ -326,7 +332,7 @@ CN_CELL_OPS = 28
 GX1 = (60, 384, 320)
 GX1_MIN_STEPS = 2000
 GX1_CHECK_STEPS = 400
-GX1_REPS = 3
+GX1_REPS = 2  # timed gx1 years after the warm-up (the script's time limit)
 BF16_TOL = 5e-4           # B5 in bf16 coefficients vs its own plain year
 STENCIL_VS_UPWIND = 5e-4  # the JAX tests' bounds: stencil year vs upwind3
 BF16_VS_UPWIND = 2e-2
@@ -423,6 +429,19 @@ PHASE10_COUNTS = (4, [30, 30, 30, 30])
 BANDED_SHAPES = {"iage 30x30": (2, 900, 30), "iage 40x50": (2, 2000, 40),
                  "phosphorus 30x30": (1, 2700, 90)}
 BANDED_TOL = {torch.float64: 1e-12, torch.complex128: 1e-12}
+# the factor and solve microseconds of the design before one barrier a
+# pivot (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), by shape and
+# dtype, printed beside this run's
+BANDED_EARLIER_US = {
+    ("iage 30x30", torch.float64): (623.85, 250.26),
+    ("iage 30x30", torch.complex128): (679.22, 355.34),
+    ("iage 40x50", torch.float64): (1719.32, 536.29),
+    ("iage 40x50", torch.complex128): (2100.03, 719.02),
+    ("phosphorus 30x30", torch.float64): (6513.69, 1130.47),
+    ("phosphorus 30x30", torch.complex128): (8365.87, 1652.27),
+}
+# the Radau years' attempts and LUs on that design (PERF.md)
+PD2D_EARLIER_COUNTS = {"ci 30x30": (1739, 1521), "iage 40x50": (2219, 2031)}
 # H100 SXM's peak float64 rate, in its tensor cores (NVIDIA's data sheet;
 # 34e12 outside them, where the kernel's arithmetic runs: the bound takes
 # the least time the card could take): a complex multiply-add is 8
@@ -2350,6 +2369,18 @@ def banded_bound(n_blocks, m, bw, dtype):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def dominant_bands(rng, n_blocks, m, bw, dtype, device):
+    """diagonally dominant (n_blocks, m, 2bw+1) row bands, zero outside the
+    matrix"""
+    vals = rng.uniform(-1.0, 1.0, (n_blocks, m, 2 * bw + 1))
+    if dtype.is_complex:
+        vals = vals + 1j * rng.uniform(-1.0, 1.0, vals.shape)
+    rows = np.arange(m)[:, None] + np.arange(2 * bw + 1)[None, :] - bw
+    vals[:, (rows < 0) | (rows >= m)] = 0.0
+    vals[:, :, bw] = np.abs(vals).sum(axis=-1) + 1.0
+    return torch.as_tensor(vals, dtype=dtype, device=device)
+
+
 def banded_kernel_timings(device):
     """the banded kernel against its plain twin at the path's shapes in
     float64 and complex128: errors, factor and solve ms, the plain twin's
@@ -2360,13 +2391,7 @@ def banded_kernel_timings(device):
     entry = None
     for label, (n_blocks, m, bw) in BANDED_SHAPES.items():
         for dtype in (torch.float64, torch.complex128):
-            vals = rng.uniform(-1.0, 1.0, (n_blocks, m, 2 * bw + 1))
-            if dtype.is_complex:
-                vals = vals + 1j * rng.uniform(-1.0, 1.0, vals.shape)
-            rows = np.arange(m)[:, None] + np.arange(2 * bw + 1)[None, :] - bw
-            vals[:, (rows < 0) | (rows >= m)] = 0.0
-            vals[:, :, bw] = np.abs(vals).sum(axis=-1) + 1.0
-            bands = torch.as_tensor(vals, dtype=dtype, device=device)
+            bands = dominant_bands(rng, n_blocks, m, bw, dtype, device)
             rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (n_blocks, m)),
                                   dtype=dtype, device=device)
             lu = banded.banded_lu_factor_blocks(bands)
@@ -2394,15 +2419,20 @@ def banded_kernel_timings(device):
 
             _, library_ms = kernel_timing_reps(lambda _: library(), None, 3)
             bound_ms, bound_by = banded_bound(n_blocks, m, bw, dtype)
-            _threads, shared, smem = banded_cuda.factor_plan(dtype, bw, device)
+            threads, where, smem, _scratch = banded_cuda.factor_plan(
+                dtype, bw, device)
+            before = BANDED_EARLIER_US[(label, dtype)]
             phase(17, f"banded_lu {label} {str(dtype)[6:]} ({n_blocks} x {m} "
                       f"x {2 * bw + 1})", rel_err=err, tol=BANDED_TOL[dtype],
                   factor_us=round(1e3 * factor_ms, 2),
                   solve_us=round(1e3 * solve_ms, 2),
+                  earlier_factor_us=before[0], earlier_solve_us=before[1],
                   plain_factor_and_solve_ms=round(plain_ms, 2),
                   library_ms=round(library_ms, 4), bound_us=round(1e3 * bound_ms, 3),
-                  bound_by=bound_by, window="shared" if shared else "device",
-                  smem_bytes=smem)
+                  bound_by=bound_by, plan_threads=threads,
+                  plan_shared_bytes=smem, plan_cluster=1,
+                  plan_window=("device" if where == "device"
+                               else f"on-chip ({where})"))
             if not err < BANDED_TOL[dtype]:
                 raise SystemExit(f"chip_smoke: banded_lu {label} {dtype} differs "
                                  f"from its plain twin by {err:.3e}")
@@ -2410,7 +2440,38 @@ def banded_kernel_timings(device):
                 entry = (abs_err, factor_ms + solve_ms, plain_ms, bound_ms,
                          bound_by, library_ms)
             del dense
+        banded_pair_timings(label, rng, n_blocks, m, bw, device)
     return entry
+
+
+def banded_pair_timings(label, rng, n_blocks, m, bw, device):
+    """the pair launches at a path shape (both Radau stage systems, float64
+    and complex128, in one launch) against their plain twins, timed"""
+    bands = [dominant_bands(rng, n_blocks, m, bw, dtype, device)
+             for dtype in (torch.float64, torch.complex128)]
+    rhs_r = torch.as_tensor(rng.uniform(-1.0, 1.0, (n_blocks, m)),
+                            dtype=torch.float64, device=device)
+    rhs_c = rhs_r.to(torch.complex128) * (1.0 - 0.5j)
+    lu_r, lu_c = banded.banded_lu_factor_pair(*bands)
+    x_r, x_c = banded.banded_lu_solve_pair(lu_r, rhs_r, lu_c, rhs_c)
+    err = 0.0
+    for band, lu, rhs, x in ((bands[0], lu_r, rhs_r, x_r),
+                             (bands[1], lu_c, rhs_c, x_c)):
+        lu_p = banded.banded_lu_factor_plain(band)
+        x_p = banded.banded_lu_solve_plain(lu_p, rhs)
+        err = max(err, float((lu - lu_p).abs().max() / lu_p.abs().max()),
+                  float((x - x_p).abs().max() / x_p.abs().max()))
+    _, factor_ms = kernel_timing_reps(
+        lambda _: banded.banded_lu_factor_pair(*bands), None, 10)
+    _, solve_ms = kernel_timing_reps(
+        lambda _: banded.banded_lu_solve_pair(lu_r, rhs_r, lu_c, rhs_c), None, 20)
+    phase(17, f"banded_lu pair {label} float64 + complex128 ({n_blocks} x {m} "
+              f"x {2 * bw + 1})", rel_err=err, tol=BANDED_TOL[torch.float64],
+          factor_pair_us=round(1e3 * factor_ms, 2),
+          solve_pair_us=round(1e3 * solve_ms, 2))
+    if not err < BANDED_TOL[torch.float64]:
+        raise SystemExit(f"chip_smoke: banded_lu's pair launches at {label} "
+                         f"differ from their plain twins by {err:.3e}")
 
 
 def py_driver_2d_phase(device):
@@ -2516,7 +2577,11 @@ def py_driver_2d_phase(device):
         if not ys or min(int(y["lu_launches"]) for y in ys) == 0:
             raise SystemExit(f"chip_smoke: a {label} Radau year ran without "
                              "banded-kernel launches")
-        phase(17, f"radau years {label}", **year_stats(ys))
+        earlier = {}
+        if label in PD2D_EARLIER_COUNTS:
+            earlier = dict(zip(("earlier_attempts_a_year", "earlier_nlu_a_year"),
+                               PD2D_EARLIER_COUNTS[label]))
+        phase(17, f"radau years {label}", **year_stats(ys), **earlier)
     launches = sum(banded_cuda.launch_counts())
     entry = banded_kernel_timings(device)
     phase(17, "py_driver_2d file-backed (float64, banded Radau on the card)",

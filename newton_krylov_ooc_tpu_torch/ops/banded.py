@@ -7,7 +7,10 @@ module scans the rows and vmaps the batch.  Here the plain versions
 (banded_lu_factor_plain, banded_lu_solve_plain) run the rows as a Python
 loop over whole batches; on a CUDA tensor the factor and the solves launch
 the hand-written kernel of ops/banded_cuda.py (csrc/banded_lu.cu) or
-raise, and the plain loops run only for tensors on the CPU.  Callers: the
+raise, and the plain loops run only for tensors on the CPU.  The pair forms
+(banded_lu_factor_pair, banded_lu_solve_pair) take a real system and its
+complex twin together, one launch on a card, the two single calls in turn
+on the CPU.  Callers: the
 stage solves of the banded Radau year (ops/radau.py), the phosphorus
 preconditioner's eigen iterations (ops/eigen.py) and the vertical-product
 preconditioner of the sharded 2D kernels (parallel/sharded_year.py).
@@ -170,3 +173,40 @@ def banded_lu_solve_blocks(factored, rhs, *, active=None):
     if active is not None and not bool(active):
         return rhs.to(factored.dtype).clone()
     return banded_lu_solve_plain(factored, rhs)
+
+
+def banded_lu_factor_pair(bands_r, bands_c, *, out_r=None, out_c=None,
+                          due=None):
+    """banded_lu_factor_blocks of a real system (B, m, 2bw+1) and its
+    complex twin (the complex dtype of its precision, the same shape), as
+    Radau's two stage systems: one launch on a card; on the CPU the real
+    one's plain loop, then the complex one's.  Returns (out_r, out_c); out_r,
+    out_c and due as banded_lu_factor_blocks' out and due."""
+    what = "banded_lu_factor_pair"
+    _check_dims(what, bands_r, 3)
+    _check_dims(what, bands_c, 3)
+    banded_cuda.check_pair(what, bands_r, bands_c)
+    if bands_r.device.type != "cpu":
+        return banded_cuda.factor_pair(bands_r.contiguous(),
+                                       bands_c.contiguous(), out_r=out_r,
+                                       out_c=out_c, due=due)
+    banded_cuda.check_distinct(what, (out_r, out_c), (bands_r, bands_c))
+    return (banded_lu_factor_blocks(bands_r, out=out_r, due=due),
+            banded_lu_factor_blocks(bands_c, out=out_c, due=due))
+
+
+def banded_lu_solve_pair(lu_r, rhs_r, lu_c, rhs_c, *, active=None):
+    """banded_lu_solve_blocks of a real system and its complex twin, from
+    banded_lu_factor_pair's factors: one launch on a card; on the CPU the
+    real one's plain loop, then the complex one's.  Returns (x_r, x_c)."""
+    what = "banded_lu_solve_pair"
+    _check_dims(what, lu_r, 3)
+    _check_dims(what, lu_c, 3)
+    banded_cuda.check_pair(what, lu_r, lu_c)
+    if lu_r.device.type != "cpu":
+        return banded_cuda.solve_pair(
+            lu_r.contiguous(), rhs_r.to(lu_r.dtype).contiguous(),
+            lu_c.contiguous(), rhs_c.to(lu_c.dtype).contiguous(),
+            active=active)
+    return (banded_lu_solve_blocks(lu_r, rhs_r, active=active),
+            banded_lu_solve_blocks(lu_c, rhs_c, active=active))

@@ -6,8 +6,10 @@
 leading axes of rhs sharing the factors: the same storage and arithmetic
 as the JAX package's banded_lu_factor / banded_lu_solve (ops/banded.py
 there, a lax.scan over rows, vmapped over blocks), in float32, float64,
-complex64 or complex128.  The kernel replaces no Pallas kernel: it stands
-for that scan on the card (the note at the top of the source gives the
+complex64 or complex128.  `factor_pair` and `solve_pair` do the same for a
+real system and its complex twin of the same precision and shape (Radau's
+two stage systems) in one launch; a pair launch counts as one launch.  The
+kernel replaces no Pallas kernel: it stands for that scan on the card (the note at the top of the source gives the
 design and what bounds it).  Its plain version is
 ops/banded.py::banded_lu_factor_plain / banded_lu_solve_plain.
 
@@ -36,9 +38,16 @@ banded_solve_launches = 0
 # csrc/banded_lu.cu's dtype codes
 _DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
            torch.complex128: 3}
-# csrc/banded_lu.cu's kMaxBandwidth: a factor window of (bw + 2)^2 slots,
-# 32 a thread of 1024 at most
+# csrc/banded_lu.cu's kMaxBandwidth: the widest factor window, 6 rows a
+# lane and 8 columns a thread in 23 warps
 MAX_BANDWIDTH = 179
+# the complex twin of each real dtype; csrc/banded_lu.cu's precision codes
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+_PRECISION = {torch.float32: 0, torch.float64: 1, torch.complex64: 0,
+              torch.complex128: 1}
+# csrc/banded_lu.cu's window locations
+_WHERE = ("registers", "shared", "device")
+_plans = {}  # (dtype, bw, device index) -> factor_plan
 
 
 def launch_counts():
@@ -64,16 +73,18 @@ def _library():
     from .imex_cuda import load_library
 
     c_int, c_ptr, c_long = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
+    p_int, p_long = ctypes.POINTER(c_int), ctypes.POINTER(c_long)
     return load_library("banded_lu", {
-        # dtype, bw -> threads, shared, smem
-        "factor_plan": ([c_int, c_int, ctypes.POINTER(c_int),
-                         ctypes.POINTER(c_int), ctypes.POINTER(c_long)], c_int),
-        # dtype, in, out, due, n_blocks, m, bw, stream
-        "factor_launch": ([c_int, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int,
-                           c_ptr], c_int),
-        # dtype, lu, x, active, n_rhs, n_blocks, m, bw, stream
-        "solve_launch": ([c_int, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int,
-                          c_int, c_ptr], c_int),
+        # dtype, bw -> threads, where, smem, scratch
+        "factor_plan": ([c_int, c_int, p_int, p_int, p_long, p_long], c_int),
+        # precision, in_r, out_r, n_r, in_c, out_c, n_c, scratch, due, m,
+        # bw, stream
+        "factor_launch": ([c_int, c_ptr, c_ptr, c_int, c_ptr, c_ptr, c_int,
+                           c_ptr, c_ptr, c_int, c_int, c_ptr], c_int),
+        # precision, lu_r, x_r, rhs_r, blocks_r, lu_c, x_c, rhs_c, blocks_c,
+        # active, m, bw, stream
+        "solve_launch": ([c_int, c_ptr, c_ptr, c_int, c_int, c_ptr, c_ptr,
+                          c_int, c_int, c_ptr, c_int, c_int, c_ptr], c_int),
     })
 
 
@@ -101,6 +112,37 @@ def _check_bands(what, bands):
     return n_blocks, m, bw
 
 
+def check_pair(what, real, cplx):
+    """refuse a real and a complex system that are not twins: the complex
+    dtype of the real one's precision, the same blocks, rows and bands, the
+    same device"""
+    for name, arr in (("real", real), ("complex", cplx)):
+        if not isinstance(arr, torch.Tensor):
+            raise TypeError(f"{what} takes torch.Tensors, got "
+                            f"{type(arr).__name__} for the {name} system")
+    if real.dtype not in _COMPLEX_OF or cplx.dtype != _COMPLEX_OF[real.dtype]:
+        raise ValueError(f"{what} takes float32 + complex64 or float64 + "
+                         f"complex128 systems, got {real.dtype} + {cplx.dtype}")
+    if real.shape != cplx.shape:
+        raise ValueError(f"{what}: the real system has shape "
+                         f"{tuple(real.shape)}, the complex one "
+                         f"{tuple(cplx.shape)}")
+    if real.device != cplx.device:
+        raise ValueError(f"{what}: the real system lies on {real.device}, "
+                         f"the complex one on {cplx.device}")
+
+
+def check_distinct(what, outs, ins):
+    """refuse an output that shares memory with an input or another
+    output"""
+    outs = [arr for arr in outs if arr is not None]
+    for num, out in enumerate(outs):
+        for other in list(ins) + outs[num + 1:]:
+            if out.data_ptr() == other.data_ptr():
+                raise ValueError(f"{what}: each out must be distinct from "
+                                 "the bands and from the other out")
+
+
 def _raise_on(lib, err, what):
     if err:
         msg = lib.banded_lu_error_string(err).decode()
@@ -119,16 +161,67 @@ def _flag_ptr(what, name, flag, device):
 
 
 def factor_plan(dtype, bw, device):
-    """(threads a block, window in shared memory, shared-memory bytes) of a
-    factorisation of `dtype` at half-width bw on a CUDA `device`"""
+    """(threads a block, where the factor's window lives -- "registers",
+    "shared" or "device" memory --, dynamic shared-memory bytes a block,
+    device-memory window bytes a matrix) of a factorisation of `dtype` at
+    half-width bw on a CUDA `device`"""
+    device = torch.device(device)
+    key = (dtype, bw, device.index)
+    if key not in _plans:
+        _plans[key] = _factor_plan(dtype, bw, device)
+    return _plans[key]
+
+
+def _factor_plan(dtype, bw, device):
     lib = _library()
-    threads, shared = ctypes.c_int(0), ctypes.c_int(0)
-    smem = ctypes.c_long(0)
+    threads, where = ctypes.c_int(0), ctypes.c_int(0)
+    smem, scratch = ctypes.c_long(0), ctypes.c_long(0)
     with torch.cuda.device(device):
         _raise_on(lib, lib.banded_lu_factor_plan(
-            _DTYPES[dtype], bw, ctypes.byref(threads), ctypes.byref(shared),
-            ctypes.byref(smem)), "banded_lu_factor_plan")
-    return threads.value, bool(shared.value), smem.value
+            _DTYPES[dtype], bw, ctypes.byref(threads), ctypes.byref(where),
+            ctypes.byref(smem), ctypes.byref(scratch)), "banded_lu_factor_plan")
+    return threads.value, _WHERE[where.value], smem.value, scratch.value
+
+
+def _out_for(what, bands, out):
+    if out is None:
+        return torch.empty_like(bands)
+    if (not isinstance(out, torch.Tensor) or out.shape != bands.shape
+            or out.dtype != bands.dtype or out.device != bands.device
+            or not out.is_contiguous() or out.data_ptr() == bands.data_ptr()):
+        raise ValueError(f"{what}: out must be a contiguous tensor like "
+                         "bands, distinct from it")
+    return out
+
+
+def _factor(what, real, cplx, due):
+    """one launch: real and cplx are (bands, out) or None"""
+    global banded_factor_launches
+    first = real if real is not None else cplx
+    n_blocks, m, bw = _check_bands(what, first[0])
+    device = first[0].device
+    due_ptr = _flag_ptr(what, "due", due, device)
+    scratch = 0
+    for system in (real, cplx):
+        if system is not None:
+            scratch += system[0].shape[0] * factor_plan(
+                system[0].dtype, bw, device)[3]
+    buf = (torch.empty(scratch, dtype=torch.uint8, device=device)
+           if scratch else None)
+
+    def ptrs(system):
+        if system is None:
+            return None, None, 0
+        return system[0].data_ptr(), system[1].data_ptr(), system[0].shape[0]
+
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.banded_lu_factor_launch(
+            _PRECISION[first[0].dtype], *ptrs(real), *ptrs(cplx),
+            None if buf is None else buf.data_ptr(), due_ptr, m, bw, stream)
+    _raise_on(lib, err, what)
+    banded_factor_launches += 1
 
 
 def factor_blocks(bands, *, out=None, due=None):
@@ -139,25 +232,73 @@ def factor_blocks(bands, *, out=None, due=None):
     due: a 0-d bool tensor on the same device, or None: where it holds
     False the kernel returns at once and `out` keeps what it held.
     """
-    global banded_factor_launches
-    n_blocks, m, bw = _check_bands("banded_lu_factor_blocks", bands)
-    if out is None:
-        out = torch.empty_like(bands)
-    elif (not isinstance(out, torch.Tensor) or out.shape != bands.shape
-          or out.dtype != bands.dtype or out.device != bands.device
-          or not out.is_contiguous() or out.data_ptr() == bands.data_ptr()):
-        raise ValueError("banded_lu_factor_blocks: out must be a contiguous "
-                         "tensor like bands, distinct from it")
-    due_ptr = _flag_ptr("banded_lu_factor_blocks", "due", due, bands.device)
-    lib = _library()
-    with torch.cuda.device(bands.device):
-        stream = torch.cuda.current_stream(bands.device).cuda_stream
-        err = lib.banded_lu_factor_launch(
-            _DTYPES[bands.dtype], bands.data_ptr(), out.data_ptr(), due_ptr,
-            n_blocks, m, bw, stream)
-    _raise_on(lib, err, "banded_lu_factor_blocks")
-    banded_factor_launches += 1
+    what = "banded_lu_factor_blocks"
+    _check_bands(what, bands)
+    out = _out_for(what, bands, out)
+    system = (bands, out)
+    if bands.dtype.is_complex:
+        _factor(what, None, system, due)
+    else:
+        _factor(what, system, None, due)
     return out
+
+
+def factor_pair(bands_r, bands_c, *, out_r=None, out_c=None, due=None):
+    """factor_blocks of a real system and its complex twin (the complex
+    dtype of its precision, the same shape) in one launch; returns (out_r,
+    out_c).  due, as factor_blocks', for both."""
+    what = "banded_lu_factor_pair"
+    check_pair(what, bands_r, bands_c)
+    _check_bands(what, bands_r)
+    _check_bands(what, bands_c)
+    out_r = _out_for(what, bands_r, out_r)
+    out_c = _out_for(what, bands_c, out_c)
+    check_distinct(what, (out_r, out_c), (bands_r, bands_c))
+    _factor(what, (bands_r, out_r), (bands_c, out_c), due)
+    return out_r, out_c
+
+
+def _check_rhs(what, factored, rhs):
+    n_blocks, m, _bw = _check_bands(what, factored)
+    if not isinstance(rhs, torch.Tensor):
+        raise TypeError(f"{what} takes a torch.Tensor rhs, got "
+                        f"{type(rhs).__name__}")
+    if rhs.device != factored.device or rhs.dtype != factored.dtype:
+        raise ValueError(f"{what}: rhs is {rhs.dtype} on {rhs.device}, the "
+                         f"factors {factored.dtype} on {factored.device}")
+    if rhs.dim() < 2 or tuple(rhs.shape[-2:]) != (n_blocks, m):
+        raise ValueError(f"{what}: rhs has shape {tuple(rhs.shape)}, "
+                         f"expected (..., {n_blocks}, {m})")
+    if not rhs.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous rhs")
+
+
+def _solve(what, real, cplx, active):
+    """one launch: real and cplx are (factored, rhs) or None; returns the
+    solutions (None for a missing system)"""
+    global banded_solve_launches
+    first = real if real is not None else cplx
+    n_blocks, m, bw = _check_bands(what, first[0])
+    active_ptr = _flag_ptr(what, "active", active, first[0].device)
+    xs = [None if system is None else system[1].clone()
+          for system in (real, cplx)]
+
+    def ptrs(system, x):
+        if system is None:
+            return None, None, 0, 0
+        return (system[0].data_ptr(), x.data_ptr(), x.numel() // m,
+                system[0].shape[0])
+
+    lib = _library()
+    device = first[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.banded_lu_solve_launch(
+            _PRECISION[first[0].dtype], *ptrs(real, xs[0]),
+            *ptrs(cplx, xs[1]), active_ptr, m, bw, stream)
+    _raise_on(lib, err, what)
+    banded_solve_launches += 1
+    return xs
 
 
 def solve_blocks(factored, rhs, *, active=None):
@@ -165,29 +306,20 @@ def solve_blocks(factored, rhs, *, active=None):
     factor_blocks, rhs (..., B, m) of the same dtype and device,
     contiguous; returns x like rhs.  active: a 0-d bool tensor on the same
     device, or None: where it holds False, x is rhs unsolved."""
-    global banded_solve_launches
-    n_blocks, m, bw = _check_bands("banded_lu_solve_blocks", factored)
-    if not isinstance(rhs, torch.Tensor):
-        raise TypeError(f"banded_lu_solve_blocks takes a torch.Tensor rhs, "
-                        f"got {type(rhs).__name__}")
-    if rhs.device != factored.device or rhs.dtype != factored.dtype:
-        raise ValueError(f"banded_lu_solve_blocks: rhs is {rhs.dtype} on "
-                         f"{rhs.device}, the factors {factored.dtype} on "
-                         f"{factored.device}")
-    if rhs.dim() < 2 or tuple(rhs.shape[-2:]) != (n_blocks, m):
-        raise ValueError(f"banded_lu_solve_blocks: rhs has shape "
-                         f"{tuple(rhs.shape)}, expected (..., {n_blocks}, {m})")
-    if not rhs.is_contiguous():
-        raise ValueError("banded_lu_solve_blocks takes a contiguous rhs")
-    active_ptr = _flag_ptr("banded_lu_solve_blocks", "active", active,
-                           factored.device)
-    x = rhs.clone()
-    lib = _library()
-    with torch.cuda.device(factored.device):
-        stream = torch.cuda.current_stream(factored.device).cuda_stream
-        err = lib.banded_lu_solve_launch(
-            _DTYPES[factored.dtype], factored.data_ptr(), x.data_ptr(),
-            active_ptr, rhs.numel() // m, n_blocks, m, bw, stream)
-    _raise_on(lib, err, "banded_lu_solve_blocks")
-    banded_solve_launches += 1
-    return x
+    what = "banded_lu_solve_blocks"
+    _check_rhs(what, factored, rhs)
+    system = (factored, rhs)
+    if factored.dtype.is_complex:
+        return _solve(what, None, system, active)[1]
+    return _solve(what, system, None, active)[0]
+
+
+def solve_pair(lu_r, rhs_r, lu_c, rhs_c, *, active=None):
+    """solve_blocks of a real system and its complex twin in one launch;
+    returns (x_r, x_c).  active, as solve_blocks', for both."""
+    what = "banded_lu_solve_pair"
+    check_pair(what, lu_r, lu_c)
+    _check_rhs(what, lu_r, rhs_r)
+    _check_rhs(what, lu_c, rhs_c)
+    x_r, x_c = _solve(what, (lu_r, rhs_r), (lu_c, rhs_c), active)
+    return x_r, x_c

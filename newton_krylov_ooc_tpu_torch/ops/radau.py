@@ -41,11 +41,12 @@ pivot-free banded LU of ops/banded.py natively in complex for the complex
 one, as the JAX integrator does off the TPU.  The state then keeps the
 factored real and complex bands in place of the dense LUs and pivots; on a
 card the factor and the solves are the hand-written kernel
-(csrc/banded_lu.cu).  Each stage's factor and solves are launched on
-every replay and read a device flag (stale LUs, a live Newton iteration,
-a converged attempt's error estimate): the work the attempt does not need
-returns at once, and its masked result is not used; the CPU skips the
-same work on the same flags.
+(csrc/banded_lu.cu), the two systems' factors in one launch and a Newton
+iteration's two solves in another.  Each stage's factors and solves are
+launched on every replay and read a device flag (stale LUs, a live Newton
+iteration, a converged attempt's error estimate): the work the attempt
+does not need returns at once, and its masked result is not used; the CPU
+skips the same work on the same flags.
 """
 
 from __future__ import annotations
@@ -60,7 +61,12 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from . import banded_cuda
-from .banded import banded_lu_factor_blocks, banded_lu_solve_blocks, bands_add_diag
+from .banded import (
+    banded_lu_factor_pair,
+    banded_lu_solve_blocks,
+    banded_lu_solve_pair,
+    bands_add_diag,
+)
 
 # -- collocation constants (float64 numpy, derived at import) -----------------
 
@@ -248,8 +254,7 @@ class Radau5:
     def _factor_lu(self, h, jac_mat):
         """the stage LUs, in the order of self.lu_keys"""
         if self.banded:
-            return tuple(banded_lu_factor_blocks(m)
-                         for m in self._shifted_bands(h, jac_mat))
+            return banded_lu_factor_pair(*self._shifted_bands(h, jac_mat))
         lu_r, piv_r, _ = torch.linalg.lu_factor_ex(MU_REAL / h * self.eye - jac_mat)
         lu_c, piv_c, _ = torch.linalg.lu_factor_ex(
             self.mu_c / h.to(self.cplx_dtype) * self.eye_c
@@ -268,6 +273,19 @@ class Radau5:
                                           active=active).reshape(-1)
         return torch.linalg.lu_solve(lu, st["piv_" + part],
                                      rhs.unsqueeze(-1)).squeeze(-1)
+
+    def _solve_stages(self, st, rhs_real, rhs_c, active):
+        """a Newton iteration's real and complex stage systems: banded, in
+        one launch of the kernel on a card (the real one, then the complex
+        one on the CPU), only where `active`"""
+        if not self.banded:
+            return (self._solve_lu(st, "r", rhs_real, active),
+                    self._solve_lu(st, "c", rhs_c, active))
+        n_blocks = st["lu_r"].shape[0]
+        x_r, x_c = banded_lu_solve_pair(
+            st["lu_r"], rhs_real.reshape(n_blocks, -1), st["lu_c"],
+            rhs_c.reshape(n_blocks, -1), active=active)
+        return x_r.reshape(-1), x_c.reshape(-1)
 
     # -- initial state -----------------------------------------------------------
 
@@ -385,8 +403,7 @@ class Radau5:
                 tif[1] - (mu_a * w[1] - mu_b * w[2]) / h,
                 tif[2] - (mu_b * w[1] + mu_a * w[2]) / h,
             )
-            dw_real = self._solve_lu(st, "r", rhs_real, active)
-            dw_c = self._solve_lu(st, "c", rhs_c, active)
+            dw_real, dw_c = self._solve_stages(st, rhs_real, rhs_c, active)
             dw = torch.stack([dw_real, dw_c.real, dw_c.imag])
 
             dw_norm = _rms_norm(dw / scale)
@@ -579,8 +596,8 @@ class Radau5:
         due = st["need_lu"] & live
         if self.banded:
             new = {}
-            for key, mat in zip(self.lu_keys, self._shifted_bands(h, st["jac_mat"])):
-                banded_lu_factor_blocks(mat, out=st[key], due=due)
+            banded_lu_factor_pair(*self._shifted_bands(h, st["jac_mat"]),
+                                  out_r=st["lu_r"], out_c=st["lu_c"], due=due)
         else:
             new = {
                 key: torch.where(due, val, st[key])

@@ -182,3 +182,80 @@ def test_other_devices_go_to_the_kernel_or_raise():
         banded.banded_lu_factor_blocks(bands)
     with pytest.raises(ValueError, match="CUDA kernel"):
         banded.banded_lu_solve_blocks(bands, torch.zeros((2, 6), device="meta"))
+
+
+def _pair_inputs(rng, real, n_blocks=2, m=30, bw=4):
+    """a real banded system and a complex one of its precision, each
+    diagonally dominant, and right-hand sides for both"""
+    cplx = {torch.float32: torch.complex64, torch.float64: torch.complex128}[real]
+    bands_r = np.stack([banded.dense_to_bands(_dominant(rng, m, bw), bw)
+                        for _ in range(n_blocks)])
+    bands_c = np.stack([banded.dense_to_bands(
+        _random_bands(rng, m, bw, True, 3.0), bw) for _ in range(n_blocks)])
+    rhs_r = rng.normal(size=(3, n_blocks, m))
+    rhs_c = rng.normal(size=(3, n_blocks, m)) + 1j * rng.normal(size=(3, n_blocks, m))
+    return (torch.as_tensor(bands_r, dtype=real), torch.as_tensor(bands_c, dtype=cplx),
+            torch.as_tensor(rhs_r, dtype=real), torch.as_tensor(rhs_c, dtype=cplx))
+
+
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+def test_pair_forms_equal_the_single_calls(real):
+    """the pair forms on the CPU: the two single calls, bit for bit, with
+    and without out, due and active"""
+    bands_r, bands_c, rhs_r, rhs_c = _pair_inputs(np.random.default_rng(12), real)
+    lu_r, lu_c = banded.banded_lu_factor_pair(bands_r, bands_c)
+    assert torch.equal(lu_r, banded.banded_lu_factor_blocks(bands_r))
+    assert torch.equal(lu_c, banded.banded_lu_factor_blocks(bands_c))
+    x_r, x_c = banded.banded_lu_solve_pair(lu_r, rhs_r, lu_c, rhs_c)
+    assert torch.equal(x_r, banded.banded_lu_solve_blocks(lu_r, rhs_r))
+    assert torch.equal(x_c, banded.banded_lu_solve_blocks(lu_c, rhs_c))
+
+    out_r, out_c = torch.full_like(bands_r, 7.0), torch.full_like(bands_c, 7.0)
+    got = banded.banded_lu_factor_pair(bands_r, bands_c, out_r=out_r,
+                                       out_c=out_c, due=torch.tensor(False))
+    assert got[0] is out_r and got[1] is out_c
+    assert bool((out_r == 7.0).all()) and bool((out_c == 7.0).all())
+    banded.banded_lu_factor_pair(bands_r, bands_c, out_r=out_r, out_c=out_c,
+                                 due=torch.tensor(True))
+    assert torch.equal(out_r, lu_r) and torch.equal(out_c, lu_c)
+    x_r, x_c = banded.banded_lu_solve_pair(lu_r, rhs_r, lu_c, rhs_c,
+                                           active=torch.tensor(False))
+    assert torch.equal(x_r, rhs_r) and torch.equal(x_c, rhs_c)
+    x_r, x_c = banded.banded_lu_solve_pair(lu_r, rhs_r, lu_c, rhs_c,
+                                           active=torch.tensor(True))
+    assert torch.equal(x_r, banded.banded_lu_solve_blocks(lu_r, rhs_r))
+    assert torch.equal(x_c, banded.banded_lu_solve_blocks(lu_c, rhs_c))
+
+
+def test_pair_forms_refuse_what_is_no_pair():
+    """mismatched rows, blocks or bands, dtypes that are no real and
+    complex twin, an out that is an input or the other out"""
+    bands_r, bands_c, rhs_r, rhs_c = _pair_inputs(np.random.default_rng(13),
+                                                  torch.float64)
+    factor, solve = banded.banded_lu_factor_pair, banded.banded_lu_solve_pair
+    with pytest.raises(ValueError, match="shape"):
+        factor(bands_r, bands_c[:, :20])
+    with pytest.raises(ValueError, match="shape"):
+        factor(bands_r, bands_c[:1])
+    with pytest.raises(ValueError, match="shape"):
+        factor(bands_r, torch.zeros((2, 30, 11), dtype=torch.complex128))
+    with pytest.raises(ValueError, match="float64 \\+ complex128"):
+        factor(bands_r, bands_c.to(torch.complex64))
+    with pytest.raises(ValueError, match="float64 \\+ complex128"):
+        factor(bands_c, bands_r)
+    with pytest.raises(ValueError, match="float64 \\+ complex128"):
+        factor(bands_r.to(torch.float32), bands_c)
+    with pytest.raises(ValueError, match="3-d"):
+        factor(bands_r[0], bands_c[0])
+    with pytest.raises(ValueError, match="distinct"):
+        factor(bands_r, bands_c, out_r=bands_r)
+    out = torch.empty_like(bands_r)
+    with pytest.raises(ValueError, match="distinct"):
+        factor(bands_r, bands_c, out_r=out, out_c=out)
+    with pytest.raises(ValueError, match="distinct"):
+        factor(bands_r, bands_c, out_c=bands_c)
+    lu_r, lu_c = factor(bands_r, bands_c)
+    with pytest.raises(ValueError, match="shape"):
+        solve(lu_r, rhs_r, lu_c[:1], rhs_c)
+    with pytest.raises(ValueError, match="float64 \\+ complex128"):
+        solve(lu_r, rhs_r, lu_c.to(torch.complex64), rhs_c)

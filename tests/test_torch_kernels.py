@@ -1271,9 +1271,19 @@ BANDED_TOL = {torch.float64: 1e-12, torch.complex128: 1e-12,
 # (blocks, rows, half-width): ci_py_driver_2d_iage's stage systems (2 x
 # 900 x 61), ci_py_driver_2d_iage_column_regions' (2 x 60 x 7), phosphorus
 # at 30 x 30 (1 x 2700 x 181), the sharded 2D year's vertical
-# preconditioner (tracers x columns of nz rows, 7 bands), iage at 40 x 50
+# preconditioner (tracers x columns of nz rows, 7 bands), iage at 40 x 50;
+# then the half-widths at each threshold of csrc/banded_lu.cu's shapes (a
+# factor's rows a lane: 32 S >= bw + 2, a solve's: 32 S >= bw + 1; memory
+# windows from bw = 94, complex128 from 63; kMaxBandwidth), fewer rows
+# than the window, one row
 BANDED_SHAPES = [(2, 900, 30), (2, 60, 3), (1, 2700, 90), (96, 24, 3),
-                 (2, 2000, 40)]
+                 (2, 2000, 40), (1, 50, 0), (2, 40, 1), (1, 300, 31),
+                 (1, 300, 32), (1, 400, 62), (1, 400, 63), (1, 400, 64),
+                 (1, 500, 94), (1, 500, 118), (1, 500, 119), (1, 600, 179),
+                 (2, 20, 30), (2, 1, 5)]
+# the pair launches' systems: a real dtype and its complex twin
+BANDED_PAIRS = [(torch.float64, torch.complex128),
+                (torch.float32, torch.complex64)]
 
 
 def _dominant_bands(rng, n_blocks, m, bw, dtype):
@@ -1325,8 +1335,10 @@ def test_banded_lu_kernel_window_off_shared_memory(cuda_device, dtype):
     in device memory; the float64 one fits"""
     rng = np.random.default_rng(3)
     m, bw = 6000, 120
-    _threads, shared, _smem = banded_cuda.factor_plan(dtype, bw, cuda_device)
-    assert shared == (dtype == torch.float64)
+    _threads, where, _smem, scratch = banded_cuda.factor_plan(dtype, bw,
+                                                              cuda_device)
+    assert where == ("shared" if dtype == torch.float64 else "device")
+    assert (scratch > 0) == (where == "device")
     bands = torch.as_tensor(_dominant_bands(rng, 1, m, bw, dtype),
                             dtype=dtype, device=cuda_device)
     rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (8, 1, m)), dtype=dtype,
@@ -1397,4 +1409,105 @@ def test_banded_lu_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="active"):
         banded_cuda.solve_blocks(lu, rhs, active=torch.ones((2,), dtype=torch.bool,
                                                             device=cuda_device))
+    assert banded_cuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtypes", BANDED_PAIRS, ids=lambda d: str(d))
+@pytest.mark.parametrize("n_blocks, m, bw", BANDED_SHAPES)
+def test_banded_lu_pair_matches_plain(cuda_device, n_blocks, m, bw, dtypes):
+    """both stage systems in one launch of the factor and one of the
+    solves, each against its plain twin; a pair counts as one launch"""
+    rng = np.random.default_rng(m + 2 * bw)
+    bands = [torch.as_tensor(_dominant_bands(rng, n_blocks, m, bw, dtype),
+                             dtype=dtype, device=cuda_device)
+             for dtype in dtypes]
+    rhs = [torch.as_tensor(rng.uniform(-1.0, 1.0, (2, n_blocks, m)),
+                           dtype=dtype, device=cuda_device) for dtype in dtypes]
+    f0, s0 = banded_cuda.launch_counts()
+    lus = banded.banded_lu_factor_pair(*bands)
+    xs = banded.banded_lu_solve_pair(lus[0], rhs[0], lus[1], rhs[1])
+    torch.cuda.synchronize()
+    assert banded_cuda.launch_counts() == (f0 + 1, s0 + 1)
+    for dtype, band, lu, rh, x in zip(dtypes, bands, lus, rhs, xs):
+        lu_p = banded.banded_lu_factor_plain(band)
+        tol = BANDED_TOL[dtype]
+        assert lu.dtype == dtype and x.dtype == dtype
+        assert _banded_rel(lu, lu_p) < tol
+        assert _banded_rel(x, banded.banded_lu_solve_plain(lu_p, rh)) < tol
+
+
+def test_banded_lu_pair_only_where_due(cuda_device):
+    """one false flag leaves both outputs as they were"""
+    rng = np.random.default_rng(8)
+    bands_r = torch.as_tensor(_dominant_bands(rng, 2, 900, 30, torch.float64),
+                              device=cuda_device)
+    bands_c = torch.as_tensor(
+        _dominant_bands(rng, 2, 900, 30, torch.complex128), device=cuda_device)
+    out_r = torch.full_like(bands_r, 7.0)
+    out_c = torch.full_like(bands_c, 7.0)
+    no = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    banded.banded_lu_factor_pair(bands_r, bands_c, out_r=out_r, out_c=out_c,
+                                 due=no)
+    assert bool((out_r == 7.0).all()) and bool((out_c == 7.0).all())
+    banded.banded_lu_factor_pair(bands_r, bands_c, out_r=out_r, out_c=out_c,
+                                 due=~no)
+    assert torch.equal(out_r, banded.banded_lu_factor_blocks(bands_r))
+    assert torch.equal(out_c, banded.banded_lu_factor_blocks(bands_c))
+    rhs_r = torch.ones((2, 900), dtype=torch.float64, device=cuda_device)
+    rhs_c = torch.ones((2, 900), dtype=torch.complex128, device=cuda_device)
+    x_r, x_c = banded.banded_lu_solve_pair(out_r, rhs_r, out_c, rhs_c,
+                                           active=no)
+    assert torch.equal(x_r, rhs_r) and torch.equal(x_c, rhs_c)
+    x_r, x_c = banded.banded_lu_solve_pair(out_r, rhs_r, out_c, rhs_c,
+                                           active=~no)
+    assert torch.equal(x_r, banded.banded_lu_solve_blocks(out_r, rhs_r))
+    assert torch.equal(x_c, banded.banded_lu_solve_blocks(out_c, rhs_c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_banded_lu_many_right_hand_sides(cuda_device, dtype):
+    """ops/eigen.py's solves: many right-hand sides against one matrix
+    (phosphorus at 30 x 30), a warp each"""
+    rng = np.random.default_rng(11)
+    bands = torch.as_tensor(_dominant_bands(rng, 1, 2700, 90, dtype),
+                            dtype=dtype, device=cuda_device)
+    rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (40, 1, 2700)), dtype=dtype,
+                          device=cuda_device)
+    lu = banded.banded_lu_factor_blocks(bands)
+    x = banded.banded_lu_solve_blocks(lu, rhs)
+    lu_p = banded.banded_lu_factor_plain(bands)
+    assert _banded_rel(x, banded.banded_lu_solve_plain(lu_p, rhs)) < \
+        BANDED_TOL[dtype]
+
+
+def test_banded_lu_pair_rejects_what_it_cannot_take(cuda_device):
+    rng = np.random.default_rng(2)
+    bands_r = torch.as_tensor(_dominant_bands(rng, 2, 20, 3, torch.float64),
+                              device=cuda_device)
+    bands_c = bands_r.to(torch.complex128)
+    rhs_r = torch.ones((2, 20), dtype=torch.float64, device=cuda_device)
+    rhs_c = rhs_r.to(torch.complex128)
+    before = banded_cuda.launch_counts()
+    with pytest.raises(ValueError, match="float64 \\+ complex128"):
+        banded_cuda.factor_pair(bands_r, bands_c.to(torch.complex64))
+    with pytest.raises(ValueError, match="float64 \\+ complex128"):
+        banded_cuda.factor_pair(bands_c, bands_r)
+    with pytest.raises(ValueError, match="shape"):
+        banded_cuda.factor_pair(bands_r, bands_c[:1])
+    with pytest.raises(ValueError, match="shape"):
+        banded_cuda.factor_pair(bands_r, bands_c[:, :19].contiguous())
+    with pytest.raises(ValueError, match="distinct"):
+        banded_cuda.factor_pair(bands_r, bands_c, out_r=torch.empty_like(bands_r),
+                                out_c=bands_c)
+    lu_r, lu_c = banded_cuda.factor_pair(bands_r, bands_c)
+    before = (before[0] + 1, before[1])
+    with pytest.raises(ValueError, match="shape"):
+        banded_cuda.solve_pair(lu_r, rhs_r, lu_c[:1], rhs_c[:1])
+    with pytest.raises(ValueError, match="rhs"):
+        banded_cuda.solve_pair(lu_r, rhs_r, lu_c, rhs_c[:, :19])
+    with pytest.raises(ValueError, match="rhs is"):
+        banded_cuda.solve_pair(lu_r, rhs_r, lu_c, rhs_r)
+    with pytest.raises(ValueError, match="active"):
+        banded_cuda.solve_pair(lu_r, rhs_r, lu_c, rhs_c,
+                               active=torch.ones((), device=cuda_device))
     assert banded_cuda.launch_counts() == before

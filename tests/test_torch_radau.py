@@ -53,7 +53,7 @@ from newton_krylov_ooc_tpu_torch.core.spatial_axis import (
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.convert import grid_from_numpy
 from newton_krylov_ooc_tpu_torch.models.py_driver_2d.phosphorus import phosphorus
 from newton_krylov_ooc_tpu_torch.models.test_problem import physics
-from newton_krylov_ooc_tpu_torch.ops import radau
+from newton_krylov_ooc_tpu_torch.ops import banded, radau
 from newton_krylov_ooc_tpu_torch.ops.radau import Radau5, radau5_integrate
 
 YEAR = 365.0 * 86400.0
@@ -363,6 +363,37 @@ def test_banded_mode_matches_jax_and_dense(nz, ny):
     assert info_d["success"]
     y_d = ys_d[-1].numpy()
     assert np.abs(y_b - y_d).max() / np.abs(y_d).max() < 1e-7
+
+
+def test_banded_pair_launches_change_no_step(monkeypatch):
+    """Radau's banded mode through the pair forms (both stage systems'
+    factors in one call, a Newton iteration's two solves in one) against the
+    single calls it made before, real then complex: the same attempts, nfev
+    and LUs, and bit-identical states"""
+    _y_jax, _counts, port = _phosphorus_banded(8, 4, with_jax=False)
+
+    def run():
+        solver = Radau5(port["fun"], len(port["y0"]), (0.0, port["t1"]),
+                        np.linspace(0.0, port["t1"], 3), device="cpu",
+                        rtol=1e-8, atol=1e-8, jac_bands=port["jac_bands"],
+                        bandwidth=port["bw"])
+        return solver.integrate(torch.as_tensor(port["y0"]))
+
+    ys, info = run()
+
+    def factor_pair(bands_r, bands_c, *, out_r=None, out_c=None, due=None):
+        return (banded.banded_lu_factor_blocks(bands_r, out=out_r, due=due),
+                banded.banded_lu_factor_blocks(bands_c, out=out_c, due=due))
+
+    def solve_stages(self, st, rhs_real, rhs_c, active):
+        return (self._solve_lu(st, "r", rhs_real, active),
+                self._solve_lu(st, "c", rhs_c, active))
+
+    monkeypatch.setattr(radau, "banded_lu_factor_pair", factor_pair)
+    monkeypatch.setattr(Radau5, "_solve_stages", solve_stages)
+    ys_s, info_s = run()
+    assert info == info_s
+    assert torch.equal(ys, ys_s)
 
 
 def test_banded_mode_refusals():
