@@ -14,10 +14,12 @@ year (kernel iage_year_v1, iage_year's PCR variant), and the dense year
 operator of the iage year, probed through iage_year under its channel map;
 the file-backed Newton-Krylov path of the test_problem model
 (setup_solver and nk_driver, float64 on the card, no kernel of its own),
-held against the committed ci baselines; and py_driver_2d's file-backed
+held against the committed ci baselines; py_driver_2d's file-backed
 path (setup_solver and nk_driver, the float64 Radau year in banded mode,
 kernel banded_lu, which replaces a lax.scan, not a Pallas kernel), held
-against its committed ci baselines and against the dense route.
+against its committed ci baselines and against the dense route; the
+sharded phosphorus solves in 2D and 3D (their preconditioners through
+banded_lu); and irf_offline's file-backed path (no kernel of its own).
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -58,8 +60,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
   6 transport3d_year against its plain PyTorch year at gx3 (the JAX
     bench's two-module family, T = 2), for a steady circulation (against the
     plain float32 and float64 years, timed), a 12-month seasonal one and the
-    gas-exchange-coupled ABIO_DIC/DIC14 pair, with the kernel's launches
-    (one a year), grid syncs a year and tile layout;
+    gas-exchange-coupled ABIO_DIC/DIC14 pair (each year timed, and held
+    against the plain float32 year over its first tenth), with the kernel's
+    launches (one a year), grid syncs a year and tile layout;
   7 the gx3 spin-up (ShardedTransport3dKernel + NewtonKrylovInCore with the
     JAX bench's settings, float32, F and JVPs on the kernel), host-driven
     and with the fused GMRES, checked for convergence, for launches, and
@@ -183,7 +186,31 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     the factor's plan (threads, shared bytes, cluster size, where its
     window lives), and the pair launches (both stage systems in one factor
     launch and one solve launch) against the twins within 1e-12, with
-    their us.
+    their us;
+ 18 the sharded phosphorus solves in float64, F and exact forward-mode
+    JVPs through the per-step sharded years (each year's interior steps
+    replayed from a CUDA graph of one step, tangents included), the
+    preconditioners' banded blocks through banded_lu, the fused GMRES:
+    (a) ShardedPhosphorusKernel at 40 x 50 on a (1, 2) mesh of the card,
+    110 steps a year (73-94 are explicitly unstable there, 96 at the
+    edge), gated on the
+    JAX test's 1e-4, po4 > 0 and the solution's residual by the float64
+    plain year on the CPU; (b) ShardedPhosphorus3dKernel at 4 x 20 x 16
+    (the largest grid tried whose JAX solve converges) with the JAX test's
+    mask holes, 30 days at daily steps, on 1 shard and
+    on 2 latitude shards of the card: total P of F(x0) under 1e-12,
+    convergence under 1e-6, total P kept within 1e-9, x >= 0, the two
+    meshes within 1e-11 of max|x|; both gated on banded_lu launches; then
+    banded_lu against its plain twin at this path's shapes (50 x 120 x 7,
+    320 x 12 x 7, float64) within 1e-12, with its and the twin's us;
+ 19 scripts/ci_torch_irf_offline.sh's cfg on the card (4 x 6 x 8, 4
+    seasonal months, iage and abio_dic_dic14, float64): the port's
+    setup_solver and nk_driver.sh (--persist) to convergence, the
+    gas-exchange stats vars in Newton_stats.nc, a --resume that takes no
+    step, and the converged iterate's F on the CPU route within the cfg's
+    newton_rel_tol; printed: seconds a module year, BiCGSTAB iterations a
+    preconditioner solve, the Newton and Krylov counts, and the phase's
+    seconds split into setup, nk_driver.sh, the resume and the recheck.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
 year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
@@ -194,6 +221,7 @@ JSON line naming the device.
 """
 
 import argparse
+import configparser
 import copy
 import json
 import logging
@@ -256,14 +284,21 @@ from newton_krylov_ooc_tpu_torch.ops.radau import Radau5
 from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel import sharded_year
 from newton_krylov_ooc_tpu_torch.parallel.mesh import make_mesh
+from newton_krylov_ooc_tpu_torch.models.irf_offline import (
+    model_state as irf_state,
+    setup_solver as irf_setup,
+)
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
+    ShardedPhosphorus3dKernel,
     ShardedTransport3dKernel,
     build_sharded_transport3d_year_blocked,
     build_sharded_transport3d_year_stream,
     family_year_inputs,
 )
+from newton_krylov_ooc_tpu_torch.utils import ncio as port_ncio
 from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
     ShardedIageKernel,
+    ShardedPhosphorusKernel,
     ShardedYearData,
     build_sharded_year,
     build_sharded_year_blocked,
@@ -332,7 +367,7 @@ CN_CELL_OPS = 28
 GX1 = (60, 384, 320)
 GX1_MIN_STEPS = 2000
 GX1_CHECK_STEPS = 400
-GX1_REPS = 2  # timed gx1 years after the warm-up (the script's time limit)
+GX1_REPS = 1  # timed gx1 years after the warm-up (the script's time limit)
 BF16_TOL = 5e-4           # B5 in bf16 coefficients vs its own plain year
 STENCIL_VS_UPWIND = 5e-4  # the JAX tests' bounds: stencil year vs upwind3
 BF16_VS_UPWIND = 2e-2
@@ -447,6 +482,43 @@ PD2D_EARLIER_COUNTS = {"ci 30x30": (1739, 1521), "iage 40x50": (2219, 2031)}
 # the least time the card could take): a complex multiply-add is 8
 # operations, a real one 2, a division 1 (real) or 10 (complex, scaled)
 PEAK_F64_PER_S = 67e12
+
+# phase 18: the sharded phosphorus solves.  2D at py_driver_2d's 40 x 50 on
+# a (1, 2) mesh of the card, the JAX test's tolerances
+# (tests/test_sharded_year.py:480-520), at 110 steps a year: 73-94 are
+# explicitly unstable at 40 x 50 (the 10 m top layer's uptake and sinking
+# leave Heun's stability interval; tests/test_torch_sharded_phosphorus.py's
+# slow stability check) and 96 sits at the interval's edge
+PHOS2D_STEPS = 110
+PHOS2D_SOLVE = dict(newton_rel_tol=1e-4, krylov_rel_tol=1e-2,
+                    newton_max_iter=8, krylov_max_dim=25, jit_gmres=True)
+# 3D at 4 x 20 x 16 with the JAX test's mask holes
+# (tests/test_sharded_transport3d.py:435-492, inside this grid), 30 days at
+# daily steps on 1 shard and on 2 latitude shards of the card, the JAX
+# test's settings.  examples/irf3d_spinup.py's 10 x 24 x 20 leaves the
+# feasible region in the JAX package's own solve (an iterate undershoots
+# zero by 2.627e-2; so do 4 x 24 x 16, 6 x 16 x 12 and 10 x 8 x 6), and
+# 4 x 20 x 16 is the largest grid tried whose JAX solve converges
+# (tests/test_torch_sharded_phosphorus.py's slow grid check)
+PHOS3D_GRID = (4, 20, 16)
+PHOS3D_DAYS = 30
+PHOS3D_SOLVE = dict(newton_rel_tol=1e-6, krylov_rel_tol=1e-3,
+                    newton_max_iter=10, krylov_max_dim=40, jit_gmres=True)
+PHOS3D_TOTAL_P_F0 = 1e-12   # total P of F(x0), absolute, as the JAX test
+PHOS3D_TOTAL_P_TOL = 1e-9   # total P over the solve, relative
+PHOS3D_MESH_TOL = 1e-11     # the two meshes' iterates, relative to max|x|
+# banded_lu's shapes on this path (blocks, rows, half-width): the 2D
+# preconditioner's (ny, 3 nz, 7) and the 3D one's (nlat nlon, 3 nz, 7)
+PHOS_BANDED_SHAPES = {"sharded phosphorus 40x50": (50, 120, 3),
+                      "phosphorus3d 4x20x16": (320, 12, 3)}
+# phase 19: scripts/ci_torch_irf_offline.sh's cfg on the card
+IRF_CI_SETUP = ["--model_name", "irf_offline", "--fp_cnt", "1", "--nz", "4",
+                "--nlat", "6", "--nlon", "8", "--seasonal_months", "4",
+                "--persist", "--tracer_module_names", "iage,abio_dic_dic14"]
+IRF_YEAR_LINE = re.compile(
+    r"irf_offline year: module=(\S+) device=(\S+) steps=(\d+) "
+    r"seconds=([0-9.]+)")
+IRF_PRECOND_LINE = re.compile(r"bicgstab_iterations=\[([0-9, ]+)\]")
 
 # phase 11: B6 on 1 shard repeats B5's arithmetic; 4 shards of the card
 SWEEP_VS_B5_TOL = 1e-6
@@ -841,25 +913,33 @@ def transport3d_kernel_phase(device):
                                    dtype=torch.float32, device=device)
         year_k = transport3d_cuda.build_transport3d_year(
             coef, *args, couple, device=device)
+        numbers = {}
         if label == "steady":
             y_k, ms = kernel_timing(year_k, y0)
+            y_32, ms_32 = timed(transport3d_cuda.build_transport3d_year_plain(
+                _to(coef, device, torch.float32), *args, couple), y0)
+            numbers["plain_f32_ms_per_year"] = ms_32
         else:
-            y_k, ms = timed(year_k, y0)
-        y_32, ms_32 = timed(transport3d_cuda.build_transport3d_year_plain(
-            _to(coef, device, torch.float32), *args, couple), y0)
+            # the kernel's year timed, then held against the plain year over
+            # its first tenth (the script's time limit)
+            _, ms = timed(year_k, y0)
+            short = tenth(args)
+            y_k = transport3d_cuda.build_transport3d_year(
+                coef, *short, couple, device=device)(y0)
+            y_32, ms_32 = timed(transport3d_cuda.build_transport3d_year_plain(
+                _to(coef, device, torch.float32), *short, couple), y0)
+            numbers.update(compared_steps=short[-1], plain_f32_ms_tenth=ms_32)
         scale = float(y_32.abs().max())
-        numbers = {}
         if label == "steady":
             y_64, ms_64 = timed(transport3d_cuda.build_transport3d_year_plain(
                 _to(coef, device, torch.float64), *args, couple), y0.double())
             scale = float(y_64.abs().max())
-            numbers = {"rel_err_f64": rel_err(y_k, y_64, scale),
-                       "plain_f64_ms_per_year": ms_64}
+            numbers.update(rel_err_f64=rel_err(y_k, y_64, scale),
+                           plain_f64_ms_per_year=ms_64)
         err_32 = rel_err(y_k, y_32, scale)
         phase(6, f"transport3d_year vs plain ({label}, {nz}x{nlat}x{nlon}, "
                  f"T={t_dim}, {n_steps} steps)",
               rel_err_f32=err_32, **numbers, kernel_ms_per_year=ms,
-              plain_f32_ms_per_year=ms_32,
               cuda_launches_per_year=transport3d_cuda.cuda_launches_per_year(
                   n_steps),
               grid_syncs_per_year=transport3d_cuda.grid_syncs_per_year(
@@ -1012,7 +1092,7 @@ def stream_kernel_phase(device):
     shed = dict(factors, t_dim=1)
     year = stream.build_transport3d_year_stream(
         coef, kv, dz_r, None, None, span, n_steps, **shed, device=device)
-    y_up, ms, count = stream_path_run(year, y0, REPS)
+    y_up, ms, count = stream_path_run(year, y0, GX1_REPS)
     launches += count
     if not (torch.isfinite(y_up).all()
             and float((y_up * (1.0 - wet)).abs().max()) == 0.0):
@@ -2381,24 +2461,29 @@ def dominant_bands(rng, n_blocks, m, bw, dtype, device):
     return torch.as_tensor(vals, dtype=dtype, device=device)
 
 
-def banded_kernel_timings(device):
-    """the banded kernel against its plain twin at the path's shapes in
-    float64 and complex128: errors, factor and solve ms, the plain twin's
-    ms, the dense torch.linalg.lu_factor + lu_solve of the same matrices
-    (library_ms, which the port never calls) and the bound; returns the
-    JSON entry's numbers (iage 30x30, complex128)"""
-    rng = np.random.default_rng(17)
+def banded_kernel_timings(device, num=17, shapes=BANDED_SHAPES,
+                          dtypes=(torch.float64, torch.complex128),
+                          extras=True):
+    """the banded kernel against its plain twin at a path's shapes (label:
+    (blocks, rows, half-width), diagonally dominant bands) in each dtype:
+    errors within BANDED_TOL, factor and solve us, the plain twin's, the
+    bound; with extras (phase 17's shapes) also the dense
+    torch.linalg.lu_factor + lu_solve of the same matrices (library_ms,
+    which the port never calls), the earlier us, the launch plan and the
+    pair launches, and returns the JSON entry's numbers (iage 30x30,
+    complex128).  These launches are not a path's: callers read their
+    path's counts first."""
+    rng = np.random.default_rng(17 if extras else 23)
     entry = None
-    for label, (n_blocks, m, bw) in BANDED_SHAPES.items():
-        for dtype in (torch.float64, torch.complex128):
+    for label, (n_blocks, m, bw) in shapes.items():
+        for dtype in dtypes:
             bands = dominant_bands(rng, n_blocks, m, bw, dtype, device)
             rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, (n_blocks, m)),
                                   dtype=dtype, device=device)
             lu = banded.banded_lu_factor_blocks(bands)
             x = banded.banded_lu_solve_blocks(lu, rhs)
-            (lu_p, x_p), plain_ms = timed(lambda: (
-                lambda f: (f, banded.banded_lu_solve_plain(f, rhs)))(
-                    banded.banded_lu_factor_plain(bands)))
+            lu_p, plain_factor_ms = timed(banded.banded_lu_factor_plain, bands)
+            x_p, plain_solve_ms = timed(banded.banded_lu_solve_plain, lu_p, rhs)
             err = max(float((lu - lu_p).abs().max() / lu_p.abs().max()),
                       float((x - x_p).abs().max() / x_p.abs().max()))
             abs_err = max(float((lu - lu_p).abs().max()),
@@ -2407,40 +2492,49 @@ def banded_kernel_timings(device):
                 lambda _: banded.banded_lu_factor_blocks(bands), None, 10)
             _, solve_ms = kernel_timing_reps(
                 lambda _: banded.banded_lu_solve_blocks(lu, rhs), None, 20)
-            dense = torch.zeros((n_blocks, m, m), dtype=dtype, device=device)
-            for d in range(2 * bw + 1):
-                off = d - bw
-                idx = torch.arange(max(0, -off), min(m, m - off), device=device)
-                dense[:, idx, idx + off] = bands[:, idx, d]
-
-            def library():
-                lu_d, piv = torch.linalg.lu_factor(dense)
-                return torch.linalg.lu_solve(lu_d, piv, rhs[..., None])
-
-            _, library_ms = kernel_timing_reps(lambda _: library(), None, 3)
             bound_ms, bound_by = banded_bound(n_blocks, m, bw, dtype)
-            threads, where, smem, _scratch = banded_cuda.factor_plan(
-                dtype, bw, device)
-            before = BANDED_EARLIER_US[(label, dtype)]
-            phase(17, f"banded_lu {label} {str(dtype)[6:]} ({n_blocks} x {m} "
-                      f"x {2 * bw + 1})", rel_err=err, tol=BANDED_TOL[dtype],
+            more = {}
+            if extras:
+                dense = torch.zeros((n_blocks, m, m), dtype=dtype,
+                                    device=device)
+                for d in range(2 * bw + 1):
+                    off = d - bw
+                    idx = torch.arange(max(0, -off), min(m, m - off),
+                                       device=device)
+                    dense[:, idx, idx + off] = bands[:, idx, d]
+
+                def library():
+                    lu_d, piv = torch.linalg.lu_factor(dense)
+                    return torch.linalg.lu_solve(lu_d, piv, rhs[..., None])
+
+                _, library_ms = kernel_timing_reps(lambda _: library(), None, 3)
+                del dense
+                threads, where, smem, _scratch = banded_cuda.factor_plan(
+                    dtype, bw, device)
+                before = BANDED_EARLIER_US[(label, dtype)]
+                more = dict(
+                    earlier_factor_us=before[0], earlier_solve_us=before[1],
+                    library_ms=round(library_ms, 4), plan_threads=threads,
+                    plan_shared_bytes=smem, plan_cluster=1,
+                    plan_window=("device" if where == "device"
+                                 else f"on-chip ({where})"))
+                if entry is None and dtype.is_complex:
+                    entry = (abs_err, factor_ms + solve_ms,
+                             plain_factor_ms + plain_solve_ms, bound_ms,
+                             bound_by, library_ms)
+            phase(num, f"banded_lu {label} {str(dtype)[6:]} ({n_blocks} x {m} "
+                       f"x {2 * bw + 1})", rel_err=err, tol=BANDED_TOL[dtype],
                   factor_us=round(1e3 * factor_ms, 2),
                   solve_us=round(1e3 * solve_ms, 2),
-                  earlier_factor_us=before[0], earlier_solve_us=before[1],
-                  plain_factor_and_solve_ms=round(plain_ms, 2),
-                  library_ms=round(library_ms, 4), bound_us=round(1e3 * bound_ms, 3),
-                  bound_by=bound_by, plan_threads=threads,
-                  plan_shared_bytes=smem, plan_cluster=1,
-                  plan_window=("device" if where == "device"
-                               else f"on-chip ({where})"))
+                  plain_factor_us=round(1e3 * plain_factor_ms, 2),
+                  plain_solve_us=round(1e3 * plain_solve_ms, 2),
+                  bound_us=round(1e3 * bound_ms, 3), bound_by=bound_by,
+                  **more)
             if not err < BANDED_TOL[dtype]:
                 raise SystemExit(f"chip_smoke: banded_lu {label} {dtype} differs "
                                  f"from its plain twin by {err:.3e}")
-            if entry is None and dtype.is_complex:
-                entry = (abs_err, factor_ms + solve_ms, plain_ms, bound_ms,
-                         bound_by, library_ms)
-            del dense
-        banded_pair_timings(label, rng, n_blocks, m, bw, device)
+        if extras:
+            banded_pair_timings(label, rng, n_blocks, m, bw, device)
     return entry
 
 
@@ -2589,11 +2683,208 @@ def py_driver_2d_phase(device):
     return launches, entry
 
 
+def counted_solve(kernel, settings, spent_f, spent_jvp):
+    """a NewtonKrylovInCore solve of kernel from its initial iterate, F and
+    JVP calls timed into spent_f and spent_jvp; (x0, x, info, seconds)"""
+    kernel.comp_fcn = timed_hook(kernel.comp_fcn, spent_f)
+    kernel.jvp = timed_hook(kernel.jvp, spent_jvp)
+    solver = NewtonKrylovInCore(kernel, **settings)
+    x0 = kernel.init_iterate()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    x, _fcn, info = solver.solve(x0)
+    torch.cuda.synchronize()
+    return x0, x, info, time.perf_counter() - start
+
+
+def sharded_phosphorus_phase(device):
+    """phase 18: the sharded phosphorus solves, float64, F and forward-mode
+    JVPs through the per-step sharded years (their steps replayed from a
+    CUDA graph), the preconditioners through banded_lu: 2D at 40 x 50 on a
+    (1, 2) mesh of the card, 3D at 4 x 20 x 16 over 30 days on 1 and 2
+    latitude shards; returns banded_lu's launches on the path"""
+    start = time.perf_counter()
+    reset_counts()
+    depth, ypos = incore_spinup.build_axes(NZ, NY)
+    kernel = ShardedPhosphorusKernel(
+        make_mesh(1, 2, devices=[device] * 2), depth, ypos,
+        incore_spinup.MODELINFO, n_steps=PHOS2D_STEPS)
+    spent_f, spent_jvp = [0.0, 0], [0.0, 0]
+    x0, x, info, seconds = counted_solve(kernel, PHOS2D_SOLVE, spent_f,
+                                         spent_jvp)
+    rel = info["fcn_norm"] / info["x_norm"]
+    launches_2d = sum(banded_cuda.launch_counts())
+    # the card's solution rechecked by the float64 plain year on the CPU
+    check = ShardedPhosphorusKernel(
+        make_mesh(1, 2, devices=["cpu"] * 2), depth, ypos,
+        incore_spinup.MODELINFO, n_steps=PHOS2D_STEPS)
+    x_cpu = x.cpu()
+    rel_cpu = float((check.norm(check.comp_fcn(x_cpu))
+                     / check.norm(x_cpu)).max())
+    phase(18, f"sharded phosphorus 2D solve ({NZ}x{NY}, {PHOS2D_STEPS} "
+              "steps a year, (1, 2) mesh, fused GMRES)",
+          newton_iterations=info["iterations"],
+          krylov_iterations=[int(k) for k in info["krylov_iterations"]],
+          seconds=round(seconds, 2), f_seconds=round(spent_f[0], 2),
+          f_evals=spent_f[1], jvp_seconds=round(spent_jvp[0], 2),
+          jvp_evals=spent_jvp[1], max_rel_resid=float(rel.max()),
+          cpu_f64_rel_resid=rel_cpu, min_po4=float(x[0, 0].min()),
+          banded_lu_launches=launches_2d)
+    if not (torch.isfinite(x).all() and (rel < PHOS2D_SOLVE["newton_rel_tol"]).all()
+            and rel_cpu < PHOS2D_SOLVE["newton_rel_tol"]
+            and float(x[0, 0].min()) > 0.0):
+        raise SystemExit("chip_smoke: the sharded phosphorus 2D solve failed "
+                         "its checks")
+
+    nz3, nlat, nlon = PHOS3D_GRID
+    mask = np.ones(PHOS3D_GRID, np.int32)
+    mask[:, 3, 2] = 0
+    mask[2:, 5, 4] = 0
+    circ = synthetic.gen_circulation(nz3, nlat, nlon, mask=mask)
+    span = (0.0, PHOS3D_DAYS * 86400.0)
+    results = []
+    for label, where in (("1 shard", {"device": device}),
+                         ("2 shards", {"mesh": make_mesh(
+                             1, 2, devices=[device] * 2)})):
+        kernel3 = ShardedPhosphorus3dKernel(circ, n_steps=PHOS3D_DAYS,
+                                            t_span=span, **where)
+        x0 = kernel3.init_iterate()
+        ones = torch.ones_like(x0)
+        p_f0 = float(kernel3.dot(kernel3.comp_fcn(x0), ones).abs().max())
+        spent_f, spent_jvp = [0.0, 0], [0.0, 0]
+        before = sum(banded_cuda.launch_counts())
+        x0, x, info, seconds = counted_solve(kernel3, PHOS3D_SOLVE, spent_f,
+                                             spent_jvp)
+        rel = info["fcn_norm"] / info["x_norm"]
+        p0 = float(kernel3.dot(x0, ones).sum())
+        p_drift = abs(float(kernel3.dot(x, ones).sum()) - p0) / abs(p0)
+        phase(18, f"phosphorus3d solve ({nz3}x{nlat}x{nlon}, {PHOS3D_DAYS} "
+                  f"days at daily steps, {label}, fused GMRES)",
+              newton_iterations=info["iterations"],
+              krylov_iterations=[int(k) for k in info["krylov_iterations"]],
+              seconds=round(seconds, 2), f_seconds=round(spent_f[0], 2),
+              f_evals=spent_f[1], jvp_seconds=round(spent_jvp[0], 2),
+              jvp_evals=spent_jvp[1], max_rel_resid=float(rel.max()),
+              total_p_of_f0=p_f0, total_p_drift=p_drift,
+              min_x=float(x.min()),
+              banded_lu_launches=sum(banded_cuda.launch_counts()) - before)
+        if not (p_f0 < PHOS3D_TOTAL_P_F0
+                and (rel < PHOS3D_SOLVE["newton_rel_tol"]).all()
+                and p_drift < PHOS3D_TOTAL_P_TOL and float(x.min()) >= 0.0):
+            raise SystemExit(f"chip_smoke: the phosphorus3d solve on {label} "
+                             "failed its checks")
+        results.append(x)
+    mesh_err = rel_err(results[1], results[0], float(results[0].abs().max()))
+    launches = sum(banded_cuda.launch_counts())
+    phase(18, "phosphorus3d meshes", rel_err_2_vs_1_shard=mesh_err,
+          tol=PHOS3D_MESH_TOL)
+    if not mesh_err < PHOS3D_MESH_TOL:
+        raise SystemExit("chip_smoke: the phosphorus3d solves on 1 and 2 "
+                         f"shards differ by {mesh_err:.3e}")
+    if min(launches_2d, launches - launches_2d) == 0:
+        raise SystemExit("chip_smoke: a phosphorus preconditioner ran without "
+                         "banded_lu launches")
+    banded_kernel_timings(device, 18, PHOS_BANDED_SHAPES, (torch.float64,),
+                          extras=False)
+    phase(18, "sharded phosphorus (float64 on the card)",
+          banded_lu_launches=launches,
+          seconds=round(time.perf_counter() - start, 1))
+    return launches
+
+
+def irf_offline_phase(device):
+    """phase 19: scripts/ci_torch_irf_offline.sh's cfg on the card: the
+    port's setup_solver and nk_driver.sh (--persist) to convergence, the
+    gas-exchange stats vars, a --resume that fast-forwards without a step,
+    and the converged iterate's F rechecked on the CPU route"""
+    start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_irf_")
+    try:
+        workdir = os.path.join(work, "ci_irf_offline_workdir")
+        irf_state.ModelState.reset_class_state()
+        irf_setup.main(irf_setup.parse_args(
+            [*IRF_CI_SETUP, "--workdir", workdir, "--device", str(device)]))
+        split = {"setup": time.perf_counter() - start}
+        driver = subprocess.run([os.path.join(workdir, "nk_driver.sh")],
+                                capture_output=True, text=True,
+                                timeout=CI_DRIVER_TIMEOUT_S)
+        if driver.returncode != 0:
+            print(driver.stdout[-4000:], driver.stderr[-4000:], flush=True)
+            raise SystemExit(f"chip_smoke: irf_offline's nk_driver.sh exited "
+                             f"{driver.returncode}")
+        split["nk_driver"] = time.perf_counter() - start - sum(split.values())
+        log_fname = os.path.join(workdir, "newton_krylov.log")
+        with open(log_fname) as fptr:
+            log = fptr.read()
+        years = IRF_YEAR_LINE.findall(log)
+        iters = [int(k) for line in IRF_PRECOND_LINE.findall(log)
+                 for k in line.split(",")]
+        converged = "Newton convergence criterion satisfied" in log
+        with open(os.path.join(workdir, "Newton_state.json")) as fptr:
+            newton = json.load(fptr)["iteration"]
+        krylov = []
+        for sub in sorted(os.listdir(workdir)):
+            if sub.startswith("krylov_"):
+                with open(os.path.join(workdir, sub, "Krylov_state.json")) as fptr:
+                    krylov.append(json.load(fptr)["iteration"])
+        with port_ncio.NCFile(os.path.join(workdir, "Newton_stats.nc")) as fptr:
+            stats = all(fptr.has_var(name) for name in
+                        ("SF_ABIO_DIC_horiz_int", "ABIO_D14C_horiz_mean"))
+        resume = subprocess.run(
+            [sys.executable, "-m", "newton_krylov_ooc_tpu_torch.cli.nk_driver",
+             "--model_name", "irf_offline", "--persist", "--workdir", workdir,
+             "--resume", "--device", str(device)],
+            capture_output=True, text=True, timeout=CI_DRIVER_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))))
+        split["resume"] = time.perf_counter() - start - sum(split.values())
+        with open(log_fname) as fptr:
+            resume_years = len(IRF_YEAR_LINE.findall(fptr.read())) - len(years)
+        # the converged iterate's F on the CPU route, from the same files
+        cfg = configparser.ConfigParser()
+        cfg.read(os.path.join(workdir, "newton_krylov.cfg.out"))
+        cfg["modelinfo"]["device"] = "cpu"
+        irf_state.ModelState.reset_class_state()
+        irf_state.ModelState.model_config_obj = port_model_config.ModelConfig(
+            cfg["modelinfo"])
+        iterate = irf_state.ModelState(
+            os.path.join(workdir, f"iterate_{newton:02d}.nc"))
+        # with a hist file, so that the year runs in the solve's segments
+        fcn = iterate.comp_fcn(None, None,
+                               hist_fname=os.path.join(work, "recheck.nc"))
+        rel_cpu = float((fcn.norm() / iterate.norm()).max())
+        tol = float(cfg["solverinfo"]["newton_rel_tol"])
+        irf_state.ModelState.reset_class_state()
+        split["cpu_recheck"] = time.perf_counter() - start - sum(split.values())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds_a_year = [float(y[3]) for y in years]
+    phase(19, "irf_offline ci cfg (4x6x8, 4 months, iage + abio_dic_dic14, "
+              "float64 on the card)",
+          converged=converged, newton_iterations=newton,
+          krylov_iterations=krylov, stats_vars=stats,
+          module_years=len(years), steps_a_year=sorted({int(y[2]) for y in years}),
+          devices=sorted({y[1] for y in years}),
+          seconds_a_year_median=statistics.median(seconds_a_year),
+          seconds_a_year_max=max(seconds_a_year),
+          precond_solves=len(iters),
+          bicgstab_iterations_a_solve=round(statistics.mean(iters), 2),
+          resume_rc=resume.returncode, resume_years=resume_years,
+          cpu_rel_resid=rel_cpu, tol=tol,
+          seconds_split={k: round(v, 1) for k, v in split.items()},
+          seconds_in_years=round(sum(seconds_a_year), 1),
+          seconds=round(time.perf_counter() - start, 1))
+    if not (converged and stats and resume.returncode == 0 and resume_years == 0
+            and {y[1] for y in years} == {str(device)} and rel_cpu < tol):
+        print(resume.stdout[-2000:], resume.stderr[-2000:], flush=True)
+        raise SystemExit("chip_smoke: the irf_offline ci cfg failed its checks")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(18),
-                        default=list(range(18)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(20),
+                        default=list(range(20)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
     phases = set(parser.parse_args(argv).phases) | {0, 1}
@@ -2652,6 +2943,11 @@ def main(argv=None):
         16: lambda: file_backed_phase("cuda"),
         # 17: py_driver_2d's file-backed path through the banded LU kernel
         17: lambda: py_driver_2d_phase("cuda"),
+        # 18: the sharded phosphorus solves, their preconditioners through
+        # the banded LU kernel
+        18: lambda: sharded_phosphorus_phase(device),
+        # 19: irf_offline's file-backed path (no kernel of its own)
+        19: lambda: irf_offline_phase(device),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -2660,7 +2956,7 @@ def main(argv=None):
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(18)):
+    if phases != set(range(20)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0
@@ -2683,6 +2979,7 @@ def main(argv=None):
     v1_launches, v1_abs, v1_ms, v1_plain_ms = results[14]
     lu_launches, (lu_abs, lu_ms, lu_plain_ms, lu_bound_ms, lu_by,
                   lu_library_ms) = results[17]
+    lu_launches += results[18]
 
     # no single PyTorch call computes an IMEX year or its table: library_ms
     # is null

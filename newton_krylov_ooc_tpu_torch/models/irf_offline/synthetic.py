@@ -4,14 +4,16 @@ Port of newton_krylov_ooc_tpu/models/irf_offline/synthetic.py: a
 POP-convention circulation (UET/VNT face transports from a discrete corner
 streamfunction -- exactly non-divergent per cell per level -- plus lateral
 conductances, a surface-intensified VDC profile, TAREA and dz), and the
-explicit stability bound of its year.  Writing the circulation and its
-grid_vars as netCDF files (write_circulation, write_grid_vars) needs the
-netCDF layer, which comes with the file-backed slice.
+explicit stability bound of its year, and the circulation and its
+grid_vars written as netCDF files (write_circulation, write_grid_vars)
+through utils/ncio.py.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ...utils.ncio import NCFile
 
 
 def gen_circulation(nz, nlat, nlon, psi_max=1.0e12, hmix_cond=2.0e11,
@@ -81,6 +83,56 @@ def gen_circulation(nz, nlat, nlon, psi_max=1.0e12, hmix_cond=2.0e11,
         "HDIFF_N": hdn,
         "VDC": vdc,
     }
+
+
+def write_circulation(fname, circ, caller="irf_offline.synthetic"):
+    """write the circulation dict as an IRF-mean-convention netCDF file;
+    seasonal (rank-4) fields gain a leading `month` dimension"""
+    nz, nlat, nlon = circ["mask"].shape
+    fields = ["UET", "VNT", "WTT", "HDIFF_E", "HDIFF_N", "VDC"]
+    n_seasons = {
+        circ[name].shape[0] for name in fields if circ[name].ndim == 4
+    }
+    if len(n_seasons) > 1:
+        raise ValueError(f"inconsistent seasonal lengths {n_seasons}")
+    with NCFile(fname, mode="w") as fptr:
+        fptr.stamp_history(caller)
+        dims = {"z_t": nz, "nlat": nlat, "nlon": nlon}
+        if n_seasons:
+            dims["month"] = next(iter(n_seasons))
+        fptr.create_dimensions_verify(dims)
+        fptr.create_variable("dz", "f8", ("z_t",))[:] = circ["dz"]
+        fptr.create_variable("TAREA", "f8", ("nlat", "nlon"))[:] = circ["TAREA"]
+        for name in fields:
+            dimnames = ("z_t", "nlat", "nlon")
+            if circ[name].ndim == 4:
+                dimnames = ("month",) + dimnames
+            fptr.create_variable(name, "f8", dimnames)[:] = circ[name]
+
+
+def write_grid_vars(fname, circ, caller="irf_offline.synthetic"):
+    """write the grid_vars file (region_mask + volume weights)"""
+    mask = circ["mask"]
+    nz, nlat, nlon = mask.shape
+    weight = (
+        circ["dz"][:, None, None] * circ["TAREA"][None, :, :] * (mask > 0)
+    )
+    with NCFile(fname, mode="w") as fptr:
+        fptr.stamp_history(caller)
+        fptr.create_dimensions_verify({"z_t": nz, "nlat": nlat, "nlon": nlon})
+        var = fptr.create_variable(
+            "region_mask",
+            "i4",
+            ("z_t", "nlat", "nlon"),
+            attrs={
+                "long_name": "Region Mask",
+                "cell_measures": "volume: grid_weight",
+            },
+        )
+        var[:] = mask
+        fptr.create_variable("grid_weight", "f8", ("z_t", "nlat", "nlon"))[
+            :
+        ] = weight
 
 
 def stable_steps_per_year(circ, safety=0.5):

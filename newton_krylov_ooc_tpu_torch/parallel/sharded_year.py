@@ -25,9 +25,13 @@ more than one card and more than one process, is ROADMAP A5.1; the numbers
 are the same either way.
 
 _ShardedKernelInterface holds the solver hooks every family kernel shares,
-the 3D kernel of parallel/sharded_transport3d.py included.  Not ported
-here: ShardedPhosphorusKernel and the per-step year's column-local
-`local_tend` hook that it alone uses (ROADMAP A5.2).
+the 3D kernels of parallel/sharded_transport3d.py included.  The per-step
+year (build_sharded_year) takes a column-local `local_tend` hook, as the
+per-step 3D year does: ShardedPhosphorusKernel's uptake, remineralisation
+and sinking ride it, with exact forward-mode JVPs through the year; the
+blocked year (B3) takes none.  On one card the per-step years' interior
+steps replay a CUDA graph of one step (replay_steps), forward-mode tangents
+included.
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..models.py_driver_2d import physics
 from ..models.py_driver_2d.iage import SURF_SLOW_FACTOR, surf_restore_rate
+from ..models.py_driver_2d.phosphorus import DEFAULT_PARAMS, light_lim_2d_np
 from ..models.py_driver_2d.incore import _warn_if_explicit_unstable
 from ..ops.banded import banded_lu_factor_blocks, banded_lu_solve_blocks
 from ..ops.imex import _kahan_add, cn_vertical_increment
@@ -142,7 +148,7 @@ def _unzip(pairs):
 
 
 def build_sharded_year(mesh, data: ShardedYearData, diag, aging, t_span,
-                       n_steps):
+                       n_steps, local_tend=None, local_data=None):
     """the per-step sharded year: ops/imex.py::imex_year on every shard,
     with one halo column a side from its ypos neighbours at every explicit
     stage, in data.dtype (float64 included).
@@ -153,8 +159,19 @@ def build_sharded_year(mesh, data: ShardedYearData, diag, aging, t_span,
         into the implicit solve
     aging: (module_batch, tracer, nz or 1, 1) explicit sources (per-module
         aging rates, or depth profiles); zeros for the tangent year
+    local_tend: optional COLUMN-LOCAL extra tendency,
+        local_tend(t, y_local, data_local) -> y_local's shape, added to
+        each shard's explicit tendency at every Heun stage's time t --
+        nonlinear biogeochemistry, particulate sinking and any other term
+        with no lateral stencil, needing no halo
+    local_data: dict name -> (n_space, ...)-stacked arrays, such as
+        (n_space, nz, ny_loc) fields; each shard's local_tend receives its
+        own block of each as data_local
     Returns year(y) for y (module_batch, tracer, nz, ny) on any device; the
-    result lies on the mesh's first device.
+    result lies on the mesh's first device.  Forward-mode AD runs through
+    the year.  When every shard lies on one CUDA device, the interior steps
+    replay a CUDA graph of one step (replay_steps), tangents included,
+    captured at the year's first call of each kind and kept.
     """
     n_module, n_space = mesh.shape["module"], mesh.shape["space"]
     if n_space != data.n_space:
@@ -190,11 +207,26 @@ def build_sharded_year(mesh, data: ShardedYearData, diag, aging, t_span,
             "dz_mid_r": put(data.dz_mid_r),
             "t0": zero_t + t_span[0],
             "dt": zero_t + (t_span[1] - t_span[0]) / n_steps,
+            "data": {name: put(arr[sj])
+                     for name, arr in (local_data or {}).items()},
         }
 
     shards = _by_shard(mesh, setup)
+    # every shard on one card: the interior steps replay a CUDA graph of one
+    # step (replay_steps)
+    one_card = len({dev for row in mesh.devices for dev in row}) == 1 and (
+        mesh.first_device.type == "cuda")
+    n_blk = n_module * n_space
+    graphs = {}   # replay_steps' captured steps, kept across calls
 
-    def explicit_tend(sh, y, v_ext):
+    def flat(blocks):
+        return [blk for row in blocks for blk in row]
+
+    def unflat(items):
+        return [list(items[mi * n_space:(mi + 1) * n_space])
+                for mi in range(n_module)]
+
+    def explicit_tend(sh, t_of, y, v_ext):
         favg = 0.5 * (v_ext[..., 1:] + v_ext[..., :-1])
         wy = favg * sh["vfaces"]                      # (..., nz, nyl+1)
         res = sh["dy_r"] * (wy[..., :-1] - wy[..., 1:])
@@ -205,11 +237,14 @@ def build_sharded_year(mesh, data: ShardedYearData, diag, aging, t_span,
         zero = y.new_zeros(y.shape[:-2] + (1, y.shape[-1]))
         wz = torch.cat([zero, wz_int, zero], dim=-2)
         res = res + sh["dz_r"][:, None] * (wz[..., 1:, :] - wz[..., :-1, :])
-        return res + sh["aging"]
+        res = res + sh["aging"]
+        if local_tend is not None:
+            res = res + local_tend(t_of(sh), y, sh["data"])
+        return res
 
-    def tend_all(ys):
+    def tend_all(t_of, ys):
         return _by_shard(mesh, lambda mi, sj, dev: explicit_tend(
-            shards[mi][sj], ys[mi][sj], _halo_cat(ys, mi, sj, 1)))
+            shards[mi][sj], t_of, ys[mi][sj], _halo_cat(ys, mi, sj, 1)))
 
     def cn_incr(sh, t, y, h):
         kv = physics.vert_mixing_coeff_arrays(
@@ -226,11 +261,11 @@ def build_sharded_year(mesh, data: ShardedYearData, diag, aging, t_span,
             return _by_shard(mesh, lambda mi, sj, dev: fn(shards[mi][sj],
                                                           mi, sj))
 
-        def heun(ys, cs):
+        def heun(t_of, ys, cs):
             # Heun (explicit trapezoid) for the non-stiff terms
-            f1 = tend_all(ys)
+            f1 = tend_all(t_of, ys)
             stage = each(lambda sh, mi, sj: ys[mi][sj] + sh["dt"] * f1[mi][sj])
-            f2 = tend_all(stage)
+            f2 = tend_all(lambda sh: t_of(sh) + sh["dt"], stage)
             return _unzip(each(lambda sh, mi, sj: _kahan_add(
                 ys[mi][sj], cs[mi][sj],
                 0.5 * sh["dt"] * (f1[mi][sj] + f2[mi][sj]))))
@@ -240,21 +275,102 @@ def build_sharded_year(mesh, data: ShardedYearData, diag, aging, t_span,
                 ys[mi][sj], cs[mi][sj],
                 cn_incr(sh, t_of(sh), ys[mi][sj], h_of(sh)))))
 
+        def step(t_of, ys, cs):
+            """one interior step, Heun then CN over dt, from time t_of"""
+            ys, cs = heun(t_of, ys, cs)
+            return cn_all(ys, cs, lambda sh: t_of(sh) + sh["dt"],
+                          lambda sh: sh["dt"])
+
         # Strang splitting with merged interior half-steps, as imex_year:
         #   CNh(t0) H(t0) CNf(t1) H(t1) ... CNf(t_{n-1}) H(t_{n-1}) CNh(t_n)
         ys, cs = cn_all(ys, zero_c, lambda sh: sh["t0"],
                         lambda sh: 0.5 * sh["dt"])
-        for ind in range(n_steps - 1):
-            ys, cs = heun(ys, cs)
-            ys, cs = cn_all(ys, cs, lambda sh: sh["t0"] + ind * sh["dt"]
-                            + sh["dt"], lambda sh: sh["dt"])
-        ys, cs = heun(ys, cs)
+        if one_card and n_steps > 2:
+            sh0 = shards[0][0]
+
+            def flat_step(t, state):
+                ys_s, cs_s = step(lambda sh: t, unflat(state[:n_blk]),
+                                  unflat(state[n_blk:]))
+                return flat(ys_s) + flat(cs_s)
+
+            state = replay_steps(flat_step, flat(ys) + flat(cs), sh0["t0"],
+                                 sh0["dt"], n_steps - 1, graphs)
+            ys, cs = unflat(state[:n_blk]), unflat(state[n_blk:])
+        else:
+            for ind in range(n_steps - 1):
+                ys, cs = step(lambda sh, ind=ind: sh["t0"] + ind * sh["dt"],
+                              ys, cs)
+        ys, cs = heun(lambda sh: sh["t0"] + (n_steps - 1) * sh["dt"], ys, cs)
         ys, _ = cn_all(ys, cs,
                        lambda sh: sh["t0"] + (n_steps - 1) * sh["dt"]
                        + sh["dt"], lambda sh: 0.5 * sh["dt"])
         return gather_state(mesh, ys)
 
     return year
+
+
+def replay_steps(step, state, t0, dt, count, graphs):
+    """state = step(t, state) at the times t = t0 + ind * dt, ind < count,
+    on one CUDA device, from a captured CUDA graph of one step, its time in
+    a device buffer set before each replay.
+
+    state: a list of tensors on t0's device, plain or dual (forward-mode
+    AD); the graph of a dual state carries the tangents, and the result is
+    dual again.  graphs: a dict that keeps the captured graphs (plain and
+    dual, by dtype and the state's shapes) and their buffers for the next
+    call of the same year; at its first call step 0 runs eagerly (also the
+    warm-up that a capture needs) and the rest replay the new graph.  Every tensor the step reads
+    or writes outside its state must outlive the graph.  The graph launches
+    the eager step's kernels, so the steps are the same; it saves the
+    host's dispatches, which set the pace of a small grid's year (forward
+    mode's several times more).  Returns the state after the last step, in
+    the graph's buffers (valid until the next call)."""
+    parts = [fwAD.unpack_dual(x) for x in state]
+    dual = any(part.tangent is not None for part in parts)
+    key = (dual, parts[0].primal.dtype,
+           tuple(tuple(part.primal.shape) for part in parts))
+    cached = graphs.get(key)
+    if cached is not None:
+        graph, prim, tang, t_buf = cached
+        for buf, part in zip(prim, parts):
+            buf.copy_(part.primal)
+        for buf, part in zip(tang, parts):
+            buf.copy_(part.tangent) if part.tangent is not None else buf.zero_()
+        first = 0
+    else:
+        prim = [part.primal.clone() for part in parts]
+        tang = [torch.zeros_like(part.primal) if part.tangent is None
+                else part.tangent.clone() for part in parts] if dual else []
+        t_buf = t0.clone()
+        first = 1
+
+    def bufs():
+        if dual:
+            return [fwAD.make_dual(p, t) for p, t in zip(prim, tang)]
+        return prim
+
+    def run():
+        for i, x in enumerate(step(t_buf, bufs())):
+            p, t = fwAD.unpack_dual(x)
+            prim[i].copy_(p)
+            if dual:
+                tang[i].copy_(t) if t is not None else tang[i].zero_()
+
+    with torch.cuda.device(t0.device):
+        if cached is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                run()
+            graphs[key] = (graph, prim, tang, t_buf)
+        for ind in range(first, count):
+            t_buf.copy_(t0 + ind * dt)
+            graph.replay()
+    return bufs()
 
 
 def _vertical_product_precond(kernel, tracer_diag, t_dim):
@@ -688,6 +804,212 @@ class ShardedForcedFamilyKernel(_FamilyKernel):
                 inc_np[b, 0], 0.0, out=scalef[b],
             )
         return scalef
+
+    def limiter_scalef_jit(self, x, increment):
+        return self._limiter_scalef_lob0_jit(x, increment)
+
+
+# the phosphorus kernels' initial po4, dop and pop depth profiles
+# (depths [m], values), interpolated at the cell centres
+PHOSPHORUS_PROFILES = (
+    ([130.0, 260.0], [5.5e-3, 4.1]),
+    ([95.0, 140.0], [7.1e-2, 1.5e-4]),
+    ([170.0, 250.0], [1.8e-2, 7.9e-4]),
+)
+
+
+def phosphorus_jvp(fcn, x, v):
+    """J v of a nonlinear F at x by forward-mode AD (torch.autograd.
+    forward_ad) through F's year"""
+    with fwAD.dual_level():
+        tangent = fwAD.unpack_dual(fcn(fwAD.make_dual(x, v))).tangent
+    return torch.zeros_like(v) if tangent is None else tangent
+
+
+def phosphorus_column_bands(p, up, lo, u1, gain, loss, transport=None):
+    """(n_col, 3 nz, 7) bands of the column-local phosphorus Jacobian in the
+    tracer-innermost layout (row r = 3 z + t): vertical coupling up (to
+    z+1) and lo (to z-1), linearised uptake u1, pop sinking's gain from the
+    cell above and loss below, each (nz, n_col), added band by band in the
+    JAX kernels' order.  transport: optional (lo, diag, up) (nz, n_col)
+    bands added to the vertical ones (the 3D kernel's same-column part of
+    the transport stencil)."""
+    nz, n_col = u1.shape
+    t_of = np.arange(3 * nz) % 3
+    po4_rows, dop_rows, pop_rows = (np.nonzero(t_of == t)[0] for t in range(3))
+    z_idx = torch.arange(3 * nz, device=u1.device) // 3
+    bands = u1.new_zeros((n_col, 3 * nz, 7))
+    up_rows, lo_rows = up[z_idx, :].T, lo[z_idx, :].T          # (n_col, 3nz)
+    if transport is None:
+        bands[:, :, 6] += up_rows
+        bands[:, :, 0] += lo_rows
+        bands[:, :, 3] += -(up_rows + lo_rows)
+    else:
+        lot, diagt, upt = transport
+        bands[:, :, 6] += up_rows + upt[z_idx, :].T
+        bands[:, :, 0] += lo_rows + lot[z_idx, :].T
+        bands[:, :, 3] += -(up_rows + lo_rows) + diagt[z_idx, :].T
+    u1_cols = u1.T                                              # (n_col, nz)
+    bands[:, po4_rows, 3] += -u1_cols
+    bands[:, po4_rows, 4] += p["dop_remin_rate"]
+    bands[:, po4_rows, 5] += p["pop_remin_rate"]
+    bands[:, dop_rows, 2] += p["sigma"] * u1_cols
+    bands[:, dop_rows, 3] += -p["dop_remin_rate"]
+    bands[:, pop_rows, 1] += (1.0 - p["sigma"]) * u1_cols
+    bands[:, pop_rows, 3] += -p["pop_remin_rate"]
+    bands[:, pop_rows, 0] += gain.T
+    bands[:, pop_rows, 3] += -loss.T
+    return bands
+
+
+def phosphorus_uptake_slope(p, light, po4):
+    """d(uptake)/d(po4) of the Michaelis-Menten uptake at po4"""
+    return (p["max_uptake_rate"] * light * p["po4_halfsat"]
+            / (po4 + p["po4_halfsat"]) ** 2)
+
+
+def phosphorus_terms(p, light, dz_r, y, sink_open=None):
+    """uptake, remineralisation and pop sinking of y (..., 3, nz, ncol):
+    the flux across each interior interface is pop_sink_vel * pop above it
+    (times sink_open (nz-1, ncol), when given, so that it crosses only
+    between wet cells), zero at the top and the bottom.  light (nz, ncol);
+    dz_r: 1 / dz as (nz, 1) or (nz, ncol)"""
+    po4, dop, pop = y[..., 0, :, :], y[..., 1, :, :], y[..., 2, :, :]
+    uptake = p["max_uptake_rate"] * light * po4 / (po4 + p["po4_halfsat"])
+    dop_remin = p["dop_remin_rate"] * dop
+    pop_remin = p["pop_remin_rate"] * pop
+    d_po4 = -uptake + dop_remin + pop_remin
+    d_dop = p["sigma"] * uptake - dop_remin
+    d_pop = (1.0 - p["sigma"]) * uptake - pop_remin
+    flux = p["pop_sink_vel"] * pop[..., :-1, :]
+    if sink_open is not None:
+        flux = flux * sink_open
+    zero = pop.new_zeros(pop.shape[:-2] + (1,) + pop.shape[-1:])
+    sink = torch.cat([zero, flux, zero], dim=-2)
+    d_pop = d_pop + dz_r * (sink[..., :-1, :] - sink[..., 1:, :])
+    return torch.stack([d_po4, d_dop, d_pop], dim=-3)
+
+
+class ShardedPhosphorusKernel(_ShardedKernelInterface):
+    """sharded NONLINEAR solver kernel: py_driver_2d phosphorus (po4, dop,
+    pop) on a (module=1, space) mesh.
+
+    The year is the per-step sharded year (build_sharded_year) with the
+    column-local biogeochemistry and sinking as its local_tend hook;
+    Jacobian-vector products are exact forward-mode AD through that year
+    (torch.autograd.forward_ad), halo exchanges included.  The
+    preconditioner is an ADI lateral sweep (PCR along ypos) followed by a
+    shift-regularised one-step implicit-Euler solve of the COLUMN-LOCAL
+    phosphorus Jacobian (vertical mixing + linearised uptake and
+    remineralisation + sinking) in tracer-innermost banded form, factored
+    by ops/banded.py::banded_lu_factor_blocks (on a card the banded_lu
+    kernel, (ny, 3 nz, 7) float64); the shift stands in for the global
+    conservation bordering, as the reference's own epsilon shift does.
+
+    The fused GMRES (jit_gmres) applies `jvp` at every Krylov step: the
+    kernel has no linearize_target, since torch.func.linearize traces a
+    year at about 2 s a step (ops/gmres.py), more than the primal years
+    it would save.
+
+    params: the phosphorus parameter dict (DEFAULT_PARAMS by default;
+    models/py_driver_2d/convert.py::params_from_numpy carries the JAX
+    kernel's).  state layout: (1, 3, nz, ny) on the mesh's first device.
+    """
+
+    def __init__(self, mesh, depth, ypos, modelinfo, params=None,
+                 dtype=torch.float64, n_steps=365, region_mask=None,
+                 grid_weight=None):
+        if mesh.shape["module"] != 1:
+            raise ValueError("phosphorus is a single module; n_module must be 1")
+        n_space = mesh.shape["space"]
+        self.mesh = mesh
+        self.device = mesh.first_device
+        self.depth, self.ypos = depth, ypos
+        self.dtype = dtype
+        self.data = ShardedYearData(depth, ypos, modelinfo, n_space, dtype)
+        nz, ny = self.data.nz, self.data.ny
+        self.nz, self.ny = nz, ny
+        self.module_batch = 1
+        self.n_steps = n_steps
+        self.year = physics.SEC_PER_YEAR
+        self.params = p = dict(DEFAULT_PARAMS if params is None else params)
+
+        light = light_lim_2d_np(depth, ypos)                   # (nz, ny)
+        nyl = ny // n_space
+        light_stack = np.stack(
+            [light[:, s * nyl:(s + 1) * nyl] for s in range(n_space)])
+
+        def local_tend(_t, y, dl):
+            return phosphorus_terms(p, dl["light"], dl["dz_r"], y)
+
+        dz_stack = np.tile(self.data.dz_r[:, None], (n_space, 1, 1))
+        self._year = build_sharded_year(
+            mesh, self.data, np.zeros((1, 3, nz, ny)), np.zeros((1, 3, 1, 1)),
+            (0.0, self.year), n_steps, local_tend=local_tend,
+            local_data={"light": light_stack, "dz_r": dz_stack},
+        )
+        self.grid = physics.Grid2D(*(f.to(self.device)
+                                     for f in self.data.grid))
+        self._init_reductions(region_mask, grid_weight, nz, ny, dtype)
+        self._lat_dl, self._lat_d, self._lat_du = _lateral_tridiag_arrays(
+            self.data, ypos, self.year, dtype=dtype, device=self.device)
+        self._comp_fcn = lambda y: self._year(y) - y
+
+        light_t = torch.as_tensor(light, dtype=dtype, device=self.device)
+        dz_r = self.grid.dz_r
+        # pop sinking: a gain from the layer above, a loss above the bottom
+        z_of = np.arange(nz)
+        sink = p["pop_sink_vel"] * self.data.dz_r
+        gain = torch.as_tensor(np.where(z_of >= 1, 1.0, 0.0) * sink,
+                               dtype=dtype, device=self.device)[:, None]
+        loss = torch.as_tensor(np.where(z_of < nz - 1, 1.0, 0.0) * sink,
+                               dtype=dtype, device=self.device)[:, None]
+
+        def precond_factor(x):
+            kv = physics.vert_mixing_coeff(self.grid, 0.5 * self.year)
+            zero = kv.new_zeros((1, ny))
+            up = torch.cat([kv * dz_r[:-1, None], zero], dim=0)  # (nz, ny)
+            lo = torch.cat([zero, kv * dz_r[1:, None]], dim=0)
+            u1 = phosphorus_uptake_slope(p, light_t, x[0, 0])
+            bands = phosphorus_column_bands(
+                p, up, lo, u1, gain.expand(nz, ny), loss.expand(nz, ny))
+            mat = self.year * bands
+            # shift off the exactly singular conservation mode
+            eps = 1.0e-6 * mat[:, :, 3].abs().max()
+            mat[:, :, 3] -= eps
+            return banded_lu_factor_blocks(mat)
+
+        def precond_apply(lu, r):
+            r_lat = pcr_solve(
+                self._lat_dl.expand(r.shape), self._lat_d.expand(r.shape),
+                self._lat_du.expand(r.shape), r)
+            # (1, 3, nz, ny) -> per-column tracer-innermost rows (ny, 3 nz)
+            cols = r_lat[0].permute(2, 1, 0).reshape(ny, 3 * nz)
+            sol = banded_lu_solve_blocks(lu, cols)
+            return sol.reshape(ny, nz, 3).permute(2, 1, 0)[None] - r
+
+        self._precond_factor = precond_factor
+        self._precond_apply = precond_apply
+
+    # -- solver interface ----------------------------------------------------
+
+    def init_iterate(self):
+        dm = self.data.depth_mid
+        cols = [np.interp(dm, d, v) for d, v in PHOSPHORUS_PROFILES]
+        field = np.stack([np.broadcast_to(c[:, None], (self.nz, self.ny))
+                          for c in cols])[None]
+        return torch.as_tensor(field, dtype=self.dtype, device=self.device)
+
+    def jvp(self, x, fcn, v):
+        """exact forward-mode JVP through the sharded nonlinear year"""
+        return phosphorus_jvp(self._comp_fcn, x, v)
+
+    def apply_limiter(self, x, increment):
+        """phosphorus tracers are bounded below by zero (the reference's
+        lob: 0.0); the per-region factor keeps x + scalef * increment
+        non-negative, so the Michaelis-Menten singularity at po4 =
+        -halfsat never enters a trial state"""
+        return self._apply_limiter_lob0(x, increment)
 
     def limiter_scalef_jit(self, x, increment):
         return self._limiter_scalef_lob0_jit(x, increment)

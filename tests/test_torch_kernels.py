@@ -40,6 +40,7 @@ from newton_krylov_ooc_tpu_torch.ops.transport3d import assemble_rate_fields
 from newton_krylov_ooc_tpu_torch.parallel import mesh as port_mesh
 from newton_krylov_ooc_tpu_torch.parallel import sharded_year
 from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
+    ShardedPhosphorus3dKernel,
     ShardedTransport3dKernel,
     build_sharded_transport3d_year,
     build_sharded_transport3d_year_blocked,
@@ -1006,6 +1007,75 @@ def test_per_step_sharded_year_replays_on_the_card(cuda_device, n_y, n_x):
     assert float((y_cpu - y0).abs().max()) > 1e-3 * scale  # the year moved y
 
 
+def _replayed_years(dim, hook, device):
+    """(fcn on the card, fcn on CPU shards, jvp pair or None, state shape,
+    wet mask): a per-step sharded year on two shards of the card -- its
+    interior steps replayed from kept CUDA graphs -- and the same year on
+    two CPU shards, float64; with the hook, the phosphorus kernels' F and
+    forward-mode JVP through their hooked years"""
+    if dim == "2d":
+        depth, ypos = build_axes(8, 8)
+        if hook:
+            card, cpu = (sharded_year.ShardedPhosphorusKernel(
+                port_mesh.make_mesh(1, 2, devices=[dev] * 2), depth, ypos,
+                MODELINFO, n_steps=24) for dev in (device, "cpu"))
+            return (card.comp_fcn, cpu.comp_fcn, (card.jvp, cpu.jvp),
+                    (1, 3, 8, 8), 1.0)
+        diag = np.zeros((1, 2, 8, 8))
+        diag[:, :, 0, :] = -1e-6
+        aging = np.full((1, 2, 1, 1), 1.0 / transport3d_cuda.SEC_PER_YEAR)
+        data = ShardedYearData(depth, ypos, MODELINFO, 2)
+        card, cpu = (build_sharded_year(
+            port_mesh.make_mesh(1, 2, devices=[dev] * 2), data, diag, aging,
+            (0.0, transport3d_cuda.SEC_PER_YEAR), 24) for dev in (device, "cpu"))
+        return card, cpu, None, (1, 2, 8, 8), 1.0
+    mask = np.ones((4, 8, 6), np.int32)
+    mask[:, 3, 2] = 0
+    mask[2:, 5, 4] = 0
+    circ = synthetic.gen_circulation(4, 8, 6, mask=mask)
+    wet = (mask > 0).astype(np.float64)
+    span = (0.0, 30.0 * 86400.0)
+    if hook:
+        card, cpu = (ShardedPhosphorus3dKernel(
+            circ, n_steps=30, t_span=span, mesh=port_mesh.make_mesh(
+                1, 2, devices=[dev] * 2)) for dev in (device, "cpu"))
+        return (card.comp_fcn, cpu.comp_fcn, (card.jvp, cpu.jvp),
+                (1, 3, 4, 8, 6), wet)
+    coef, kv, dz_r, diag, src, couple = family_year_inputs(circ, ABIO_SPECS)
+    card, cpu = (build_sharded_transport3d_year(
+        port_mesh.make_mesh(1, 2, devices=[dev] * 2), coef, kv, dz_r, diag,
+        src, span, 30, couple) for dev in (device, "cpu"))
+    return card, cpu, None, (2, 4, 8, 6), wet
+
+
+@pytest.mark.parametrize("hook", [False, True])
+@pytest.mark.parametrize("dim", ["2d", "3d"])
+def test_replayed_years_keep_their_graphs(cuda_device, dim, hook):
+    """the per-step 2D and 3D sharded years on one card, with and without
+    the column-local hook, against the same years on CPU shards within
+    1e-12 of max: primal and forward-mode tangent, on two successive calls
+    with new states and tangents, so that the second replays the graphs
+    the first captured and kept"""
+    card, cpu, jvps, shape, wet = _replayed_years(dim, hook, cuda_device)
+    rng = np.random.default_rng(59)
+    for _call in range(2):
+        y = torch.as_tensor((rng.uniform(0.2, 1.5, shape) * wet))
+        v = torch.as_tensor((rng.normal(size=shape) * wet))
+        ref = cpu(y)
+        out = card(y.to(cuda_device)).cpu()
+        assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+        if jvps is None:
+            ref_t = sharded_year.phosphorus_jvp(cpu, y, v)
+            out_t = sharded_year.phosphorus_jvp(
+                card, y.to(cuda_device), v.to(cuda_device)).cpu()
+        else:
+            ref_t = jvps[1](y, None, v)
+            out_t = jvps[0](y.to(cuda_device), None, v.to(cuda_device)).cpu()
+        scale = float(ref_t.abs().max())
+        assert scale > 0.0
+        assert float((out_t - ref_t).abs().max()) <= 1e-12 * scale
+
+
 # -- B7: k steps on a halo-extended latitude block ----------------------------
 
 def _b7_window(nz, nlat, nlon, seed=53, land=()):
@@ -1275,12 +1345,15 @@ BANDED_TOL = {torch.float64: 1e-12, torch.complex128: 1e-12,
 # then the half-widths at each threshold of csrc/banded_lu.cu's shapes (a
 # factor's rows a lane: 32 S >= bw + 2, a solve's: 32 S >= bw + 1; memory
 # windows from bw = 94, complex128 from 63; kMaxBandwidth), fewer rows
-# than the window, one row
+# than the window, one row; last the sharded phosphorus preconditioners'
+# (ny x 3 nz x 7 at 40 x 50, nlat nlon x 3 nz x 7 at 4 x 8 x 6 and
+# 4 x 20 x 16)
 BANDED_SHAPES = [(2, 900, 30), (2, 60, 3), (1, 2700, 90), (96, 24, 3),
                  (2, 2000, 40), (1, 50, 0), (2, 40, 1), (1, 300, 31),
                  (1, 300, 32), (1, 400, 62), (1, 400, 63), (1, 400, 64),
                  (1, 500, 94), (1, 500, 118), (1, 500, 119), (1, 600, 179),
-                 (2, 20, 30), (2, 1, 5)]
+                 (2, 20, 30), (2, 1, 5), (50, 120, 3), (48, 12, 3),
+                 (320, 12, 3)]
 # the pair launches' systems: a real dtype and its complex twin
 BANDED_PAIRS = [(torch.float64, torch.complex128),
                 (torch.float32, torch.complex64)]
