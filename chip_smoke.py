@@ -19,7 +19,9 @@ path (setup_solver and nk_driver, the float64 Radau year in banded mode,
 kernel banded_lu, which replaces a lax.scan, not a Pallas kernel), held
 against its committed ci baselines and against the dense route; the
 sharded phosphorus solves in 2D and 3D (their preconditioners through
-banded_lu); and irf_offline's file-backed path (no kernel of its own).
+banded_lu); irf_offline's file-backed path (no kernel of its own); and the
+cime_pop adapter's on-device preconditioner solves at gx3 and gx1 (plain
+PyTorch sparse solves, no kernel of their own).
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 0 1 8   # some phases, no JSON lines
@@ -42,7 +44,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     GMRES and with the fused Newton solve, each checked for convergence and
     for launches of the kernel and of the table kernel (one table for every
     solve's F and JVP years), the CLI's solution against a float64 plain
-    evaluation of F, and each fused solve against the host one: the same
+    evaluation of F (a year on the CPU, in a process of its own beside the
+    later phases, read at the end), and each fused solve against the host
+    one: the same
     Newton count, Krylov counts within one at each step, iterates within
     1e-4 (phases 7, 10 and 12 hold theirs so too);
   4 phosphorus_year against its plain PyTorch version at 40 x 50 x 8760,
@@ -74,8 +78,9 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     float32 and float64 years at 400 steps (its JSON entry's times); the
     stencil year in float32 and in bfloat16 coefficients, the bench's
     four-module factored family and a 12-month seasonal year, each against
-    its plain year at 400 steps and timed at 2000; the coupled
-    ABIO_DIC/DIC14 pair against its plain year at 400 steps.  Its timed runs
+    its plain year over the first 200 steps of the 400-step year and timed
+    at 2000; the coupled ABIO_DIC/DIC14 pair against its plain year over
+    those 200 steps.  Its timed runs
     are the path whose launches the kernel's JSON entry counts.  Phases 8,
     11 and 13 each print the kernel times PERF.md gives for the design
     before the fused step first, and this run's beside them last; phases
@@ -110,7 +115,8 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     400 steps on 4 shards, against the same year through the plain sweep
     and against phase 8's plain f32 and f64 years (its JSON entry's
     times), then the stencil f32 and the 12-month seasonal coupled
-    ABIO_DIC/DIC14 years on 4 shards against their plain-sweep years.
+    ABIO_DIC/DIC14 years on 4 shards against their plain-sweep years over
+    the first 200 of those 400 steps.
     Its timed 2000-step years are the path whose launches the kernel's
     JSON entry counts;
  12 the sharded 3D spin-up through cli/irf3d_spinup.py's entry function at
@@ -210,7 +216,30 @@ Phases, one line of numbers each; any failure raises and exits non-zero:
     step, and the converged iterate's F on the CPU route within the cfg's
     newton_rel_tol; printed: seconds a module year, BiCGSTAB iterations a
     preconditioner solve, the Newton and Krylov counts, and the phase's
-    seconds split into setup, nk_driver.sh, the resume and the recheck.
+    seconds split into setup, nk_driver.sh, the resume and the recheck;
+ 20 the cime_pop adapter's on-device preconditioner solves (plain PyTorch,
+    no kernel of their own).  Its host side runs in a process of its own
+    beside phases 1-19: gen_A and the gCol library built from native/ with
+    g++ into build/native/, gen_A's matrices of the JAX bench's synthetic
+    IRF circulation with its precond options, and the CPU halves of (a)
+    and (c).  On the card: (a) gx3 (25 x 116
+    x 100, 2 rhs, seed 17) through solve_csr_systems's line, mixed, Jacobi
+    and ELL routes on the card (the last two capped at 2500 iterations),
+    solve_csr_systems_sharded's line and mixed on 4 shards of the card and
+    the line route on the CPU: each converged solve's true residual (a
+    float64 CSR product on the card) within 1e-10, mixed against line,
+    sharded against unsharded and the card against the CPU within 1e-9 of
+    max|x|, iterations within 1 (sharded line), 3 (sharded mixed) and 2
+    (the CPU); (b) gx1 (25 x 384 x 320, 1 rhs, seed 19) through the
+    adapter's _device_solve_matrix
+    (line): its true residual within 1e-10 and _OLD equal to _CUR, with
+    the seconds of gen_A, the regrouping and the solve, the iterations and
+    the peak device memory; (c) tests/cime_mock_case.py's mock CIME case
+    through the port's adapter with precond_solver_mode=device on the card
+    and on the CPU: the mock model's fixed point within 1e-8, the same
+    Newton and Krylov counts; (d) probe_jacobian recovers a 5 x 24 x 20
+    gen_A matrix from dia_matvec on the card within 1e-14 of max|A|, with
+    the gCol library from build/native/.
 Then one JSON line describing each kernel -- its time and its plain
 version's over the same work (the first tenth of a 2D year, a 400-step gx1
 year, on 4 shards for transport3d_sweep, B4's full gx3 year, the 1-shard
@@ -228,6 +257,7 @@ import logging
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -296,6 +326,14 @@ from newton_krylov_ooc_tpu_torch.parallel.sharded_transport3d import (
     family_year_inputs,
 )
 from newton_krylov_ooc_tpu_torch.utils import ncio as port_ncio
+from newton_krylov_ooc_tpu_torch.core import newton as port_newton
+from newton_krylov_ooc_tpu_torch.models.cime_pop import (
+    model_state as cime_state,
+)
+from newton_krylov_ooc_tpu_torch.ops import probing, sparse
+from newton_krylov_ooc_tpu_torch.parallel.sharded_sparse import (
+    solve_csr_systems_sharded,
+)
 from newton_krylov_ooc_tpu_torch.parallel.sharded_year import (
     ShardedIageKernel,
     ShardedPhosphorusKernel,
@@ -362,11 +400,17 @@ T3D_CELL_OPS = 198
 CN_CELL_OPS = 28
 # the JAX bench's gx1 sections (bench.py:838-983, 1205-1352): POP gx1v7
 # extents, at least 2000 steps a year; the plain years that check the
-# stencil, family, seasonal and coupled years run 400 steps (stable: the
-# synthetic circulation needs 365)
+# steady year run 400 steps (stable: the synthetic circulation needs 365)
 GX1 = (60, 384, 320)
 GX1_MIN_STEPS = 2000
 GX1_CHECK_STEPS = 400
+# the other modes (phase 8's stencil, bf16, family, coupled and seasonal
+# years, phase 11's stencil and seasonal coupled years on 4 shards) are held
+# to their plain years over the first half of that 400-step year, at its dt
+# (their plain years are most of those phases' time)
+GX1_MODE_STEPS = GX1_CHECK_STEPS // 2
+GX1_MODE_SPAN = (0.0, transport3d_cuda.SEC_PER_YEAR * GX1_MODE_STEPS
+                 / GX1_CHECK_STEPS)
 GX1_REPS = 1  # timed gx1 years after the warm-up (the script's time limit)
 BF16_TOL = 5e-4           # B5 in bf16 coefficients vs its own plain year
 STENCIL_VS_UPWIND = 5e-4  # the JAX tests' bounds: stencil year vs upwind3
@@ -520,6 +564,34 @@ IRF_YEAR_LINE = re.compile(
     r"seconds=([0-9.]+)")
 IRF_PRECOND_LINE = re.compile(r"bicgstab_iterations=\[([0-9, ]+)\]")
 
+# phase 20: the cime_pop adapter's preconditioner matrices through the
+# native gen_A (built with the Makefile's flags into build/native/, as is
+# the gCol library), from the JAX bench's synthetic IRF circulation at its
+# precond extents and options (bench.py:1509-1566, 1714-1720)
+REPO = os.path.dirname(os.path.abspath(__file__))
+NATIVE_OUT = os.path.join(REPO, "build", "native")
+NATIVE_CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall"]
+PRECOND_GX3 = (25, 116, 100)
+PRECOND_GX1 = (25, 384, 320)
+PRECOND_PROBE = (5, 24, 20)
+PRECOND_OPTS = ("day_cnt 365", "vmix_type file VDC", "adv_type upwind3",
+                "hmix_type isop_file", "sink_type const 3.17e-10")
+JACOBI_CAP = 2500      # the bench's cap on the Jacobi (and ELL) routes
+PRECOND_RESID_TOL = 1e-10  # true relative residual of a converged solve
+PRECOND_X_TOL = 1e-9   # routes, meshes and devices, relative to max|x|
+PROBE_TOL = 1e-14      # the probed matrix, relative to max|A|
+# per-rhs iteration spreads: the float64 line solves sharded against
+# unsharded (the shards sum their dot products in another order) and the
+# card against the CPU; the mixed solves' float32 inner loops, whose
+# sharded matvec (ELL) rounds otherwise than the unsharded one (DIA): set
+# to 3 from the readings before the first card run (2 in a CPU rehearsal
+# at 6 x 20 x 16, 3 in the CPU tests on one fixture; the card read 2 at gx3)
+LINE_ITER_SPREAD = 1
+MIXED_ITER_SPREAD = 3
+CPU_ITER_SPREAD = 2
+SOLVE_LINE = re.compile(r"DIA (\d+) offsets.*regroup ([0-9.]+) s, "
+                        r"solve ([0-9.]+) s, iterations \[([0-9, ]+)\]")
+
 # phase 11: B6 on 1 shard repeats B5's arithmetic; 4 shards of the card
 SWEEP_VS_B5_TOL = 1e-6
 GX1_SHARDS = 4
@@ -590,9 +662,77 @@ EARLIER_DESIGN = {8: "the fused step", 11: "the fused step",
                   3: "the fused solves", 14: "the table", 4: "the table"}
 
 
+# the CPU checks that run beside the card's phases (CpuCheck), the gates
+# that read them once every phase has run, and their scratch directories
+CPU_CHECK_TIMEOUT_S = 900
+DEFERRED = []
+BACKGROUND_DIRS = []
+
+
 def phase(num, title, **numbers):
     body = " ".join(f"{key}={val}" for key, val in numbers.items())
     print(f"phase {num} {title}: {body}", flush=True)
+
+
+class CpuCheck:
+    """a reference computation on the CPU in a process (group) of its own,
+    beside the card's phases: `chip_smoke.py --cpu-check NAME DIR` runs
+    CPU_CHECKS[NAME](DIR) on one thread, which reads its inputs from DIR;
+    its result goes to DIR/result.json"""
+
+    running = []
+
+    def __init__(self, name, work):
+        self.name, self.work = name, work
+        self.log_fname = os.path.join(work, "cpu_check.log")
+        self.start = time.perf_counter()
+        self.seconds = None
+        with open(self.log_fname, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cpu-check",
+                 name, work], stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True,
+                env={**os.environ, "OMP_NUM_THREADS": "1",
+                     "CUDA_VISIBLE_DEVICES": ""})
+        CpuCheck.running.append(self)
+
+    def result(self):
+        """wait for the process; its result, or raise with its log's tail"""
+        rc = self.proc.wait(timeout=CPU_CHECK_TIMEOUT_S)
+        CpuCheck.running.remove(self)
+        if rc != 0:
+            with open(self.log_fname) as fptr:
+                print(fptr.read()[-4000:], flush=True)
+            raise SystemExit(f"chip_smoke: the CPU check {self.name} exited {rc}")
+        with open(os.path.join(self.work, "result.json")) as fptr:
+            out = json.load(fptr)
+        self.seconds = out.pop("seconds")
+        return out
+
+    @classmethod
+    def stop_all(cls):
+        for check in cls.running:
+            if check.proc.poll() is None:
+                os.killpg(check.proc.pid, signal.SIGKILL)
+            check.proc.wait()
+        cls.running.clear()
+
+
+def run_cpu_check(name, work):
+    """the body of `--cpu-check NAME DIR`"""
+    torch.set_num_threads(1)
+    start = time.perf_counter()
+    out = CPU_CHECKS[name](work)
+    out["seconds"] = round(time.perf_counter() - start, 1)
+    with open(os.path.join(work, "result.json"), "w") as fptr:
+        json.dump(out, fptr)
+
+
+def background_dir(prefix):
+    """a scratch directory that main removes when the script ends"""
+    work = tempfile.mkdtemp(prefix=prefix)
+    BACKGROUND_DIRS.append(work)
+    return work
 
 
 def earlier_times(num):
@@ -1150,8 +1290,8 @@ def stream_kernel_phase(device):
     del plain, year_b4, year_c
 
     # -- the stencil years (bench.py:945-980), the four-module family
-    # (bench.py:1226-1236) and the coupled pair: 400 steps against the plain
-    # year, then timed at n_steps
+    # (bench.py:1226-1236) and the coupled pair: the first half of the
+    # 400-step year against the plain year, then timed at n_steps
     def rates(specs):
         return assemble_rate_fields(specs, (circ["mask"] > 0).reshape(nz, -1),
                                     float(circ["dz"][0]),
@@ -1174,14 +1314,15 @@ def stream_kernel_phase(device):
     for label, t_dim, diag, src, couple, kwargs, tol, up_tol in cases:
         y0_t = y0.expand((t_dim,) + GX1).contiguous()
         args = (kv, dz_r, diag, src, span)
+        mode_args = (kv, dz_r, diag, src, GX1_MODE_SPAN, GX1_MODE_STEPS)
         year_c = stream.build_transport3d_year_stream(
-            coef, *args, GX1_CHECK_STEPS, couple, **kwargs, device=device)
+            coef, *mode_args, couple, **kwargs, device=device)
         y_c, ms_c = timed(year_c, y0_t)
         plain_c = stream.build_transport3d_year_stream_plain(
-            _to(coef, device, f64), *args, GX1_CHECK_STEPS, couple, **kwargs,
-            dtype=f32)
+            _to(coef, device, f64), *mode_args, couple, **kwargs, dtype=f32)
         y_p, ms_p = timed(plain_c, y0_t)
-        numbers = {"kernel_ms_400_steps": ms_c, "plain_f32_ms_400_steps": ms_p}
+        numbers = {f"kernel_ms_{GX1_MODE_STEPS}_steps": ms_c,
+                   f"plain_f32_ms_{GX1_MODE_STEPS}_steps": ms_p}
         if up_tol is not None:
             year_t = stream.build_transport3d_year_stream(
                 coef, *args, n_steps, couple, **kwargs, device=device)
@@ -1203,7 +1344,8 @@ def stream_kernel_phase(device):
             del year_t, y_t
         worst_abs = max(worst_abs, stream_check(
             f"transport3d_stream vs plain f32 ({label}, {nz}x{nlat}x{nlon}, "
-            f"{GX1_CHECK_STEPS} steps, T={t_dim})",
+            f"the first {GX1_MODE_STEPS} of {GX1_CHECK_STEPS} steps, "
+            f"T={t_dim})",
             y_c, y_p, float(y_p.abs().max()), tol, wet, **numbers))
         del year_c, plain_c, y_c, y_p
 
@@ -1216,20 +1358,23 @@ def stream_kernel_phase(device):
               "recip_dz": 1.0 / circ_s["dz"], "t_dim": 1}
     n_steps_s = max(GX1_MIN_STEPS, synthetic.stable_steps_per_year(circ_s))
     args = (kv_s, dz_r_s, None, None, span)
+    mode_args = (kv_s, dz_r_s, None, None, GX1_MODE_SPAN, GX1_MODE_STEPS)
     year_c = stream.build_transport3d_year_stream(
-        coef_s, *args, GX1_CHECK_STEPS, **shed_s, device=device)
+        coef_s, *mode_args, **shed_s, device=device)
     y_c, ms_c = timed(year_c, y0_s)
     y_p, ms_p = timed(stream.build_transport3d_year_stream_plain(
-        _to(coef_s, device, f32), *args, GX1_CHECK_STEPS, **shed_s), y0_s)
+        _to(coef_s, device, f32), *mode_args, **shed_s), y0_s)
     year_t = stream.build_transport3d_year_stream(
         coef_s, *args, n_steps_s, **shed_s, device=device)
     _, ms_t, count = stream_path_run(year_t, y0_s, GX1_REPS)
     launches += count
     worst_abs = max(worst_abs, stream_check(
         f"transport3d_stream vs plain f32 (seasonal 12 months, {nz}x{nlat}x"
-        f"{nlon}, {GX1_CHECK_STEPS} steps, T=1)",
+        f"{nlon}, the first {GX1_MODE_STEPS} of {GX1_CHECK_STEPS} steps, "
+        "T=1)",
         y_c, y_p, float(y_p.abs().max()), F32_TOL, wet_s,
-        kernel_ms_400_steps=ms_c, plain_f32_ms_400_steps=ms_p,
+        **{f"kernel_ms_{GX1_MODE_STEPS}_steps": ms_c,
+           f"plain_f32_ms_{GX1_MODE_STEPS}_steps": ms_p},
         kernel_ms_per_year=ms_t, kernel_ms_per_step=ms_t / n_steps_s,
         hbm_bytes_per_step=year_t.hbm_bytes_per_step,
         est_flops_per_step=year_t.est_flops_per_step,
@@ -1372,7 +1517,8 @@ def sweep_kernel_phase(device):
     del year_c, y_c, y_p, y_32, y_64
 
     # -- the stencil f32 year, and the 12-month seasonal coupled pair, on
-    # four shards at 400 steps against their plain-sweep years
+    # four shards over the first half of the 400-step year against their
+    # plain-sweep years
     circ_s = synthetic.gen_circulation(*GX1, n_seasons=12)
     wet_s = torch.as_tensor(circ_s["mask"] > 0, dtype=f32, device=device)
     abio = family_year_inputs(circ_s, irf3d_spinup.ABIO_SPECS)
@@ -1390,15 +1536,19 @@ def sweep_kernel_phase(device):
     for label, wet_c, y0_c, inputs, kwargs in cases:
         def build(**extra):
             return build_sharded_transport3d_year_stream(
-                four, *inputs, span, GX1_CHECK_STEPS, **kwargs, **extra)
+                four, *inputs, GX1_MODE_SPAN, GX1_MODE_STEPS, **kwargs,
+                **extra)
 
         y_k, ms_k = timed(build(), y0_c)
         y_p, ms_p = timed(build(plain=True), y0_c)
         err = rel_err(y_k, y_p, float(y_p.abs().max()))
         phase(11, f"transport3d_sweep vs plain ({label}, {GX1_SHARDS} "
-                  f"shards, {GX1_CHECK_STEPS} steps, T={y0_c.shape[0]})",
-              rel_err=err, tol=F32_TOL, kernel_ms_400_steps=ms_k,
-              plain_sweep_ms_400_steps=ms_p, max_abs_y=float(y_p.abs().max()))
+                  f"shards, the first {GX1_MODE_STEPS} of {GX1_CHECK_STEPS} "
+                  f"steps, T={y0_c.shape[0]})",
+              rel_err=err, tol=F32_TOL,
+              **{f"kernel_ms_{GX1_MODE_STEPS}_steps": ms_k,
+                 f"plain_sweep_ms_{GX1_MODE_STEPS}_steps": ms_p},
+              max_abs_y=float(y_p.abs().max()))
         if not (torch.isfinite(y_k).all() and err <= F32_TOL):
             raise SystemExit(f"chip_smoke: transport3d_sweep disagrees "
                              f"({label}): {err:.3e} (bound {F32_TOL})")
@@ -1605,7 +1755,7 @@ def compare_solves(num, label, host, fused):
                          f" from the host path's (bound {FUSED_TOL})")
 
 
-def iage_solve_phase(depth, ypos, device):
+def iage_solve_phase():
     """phase 3: the iage solve through the CLI entry point (host-driven, as
     the JAX example's), then on the CLI's kernel host-driven again, with the
     fused GMRES and with the fused Newton solve; returns the CLI solve's
@@ -1659,15 +1809,35 @@ def iage_solve_phase(depth, ypos, device):
           bytes=kernel.table.nbytes)
     for route in ("jit_gmres", "jit_newton"):
         compare_solves(3, f"iage {route}", solves["host"], solves[route])
-    check = IageKernel(depth, ypos, incore_spinup.MODELINFO, device=device,
-                       dtype=torch.float64, n_steps=N_STEPS)
-    x64 = solves["CLI"][0].double()
-    rel64 = (check.norm(check.comp_fcn(x64)) / check.norm(x64)).max().item()
-    phase(3, "CLI solution by the f64 plain year", f64_plain_rel_resid=rel64)
-    if not rel64 < 1e-4:
-        raise SystemExit(f"chip_smoke: f64 residual at the solution {rel64:.3e}")
+    # the f64 plain year (~34 s of launches on the card) runs on the CPU
+    # beside the later phases
+    work = background_dir("chip_smoke_iage_f64_")
+    np.save(os.path.join(work, "x.npy"), solves["CLI"][0].cpu().numpy())
+    check = CpuCheck("iage_f64", work)
+
+    def gate():
+        rel64 = check.result()["rel64"]
+        phase(3, "CLI solution by the f64 plain year (CPU)",
+              f64_plain_rel_resid=rel64, cpu_seconds=check.seconds)
+        if not rel64 < 1e-4:
+            raise SystemExit(f"chip_smoke: f64 residual at the solution "
+                             f"{rel64:.3e}")
+
+    DEFERRED.append(gate)
     against_earlier(3, {"host solve_seconds": solves["CLI"][1]["seconds"]})
     return counts["CLI"]
+
+
+def iage_f64_check(work):
+    """phase 3's CPU check: F of the CLI's solution (work/x.npy) by the
+    float64 plain year"""
+    depth, ypos = incore_spinup.build_axes(NZ, NY)
+    check = IageKernel(depth, ypos, incore_spinup.MODELINFO, device="cpu",
+                       dtype=torch.float64, n_steps=N_STEPS)
+    x64 = torch.as_tensor(np.load(os.path.join(work, "x.npy")),
+                          dtype=torch.float64)
+    rel64 = (check.norm(check.comp_fcn(x64)) / check.norm(x64)).max().item()
+    return {"rel64": rel64}
 
 
 def stable_step_count(ypos, base_steps):
@@ -2880,14 +3050,435 @@ def irf_offline_phase(device):
         raise SystemExit("chip_smoke: the irf_offline ci cfg failed its checks")
 
 
+def build_native():
+    """g++ builds of gen_A and the gCol library from native/ into
+    build/native/ with the Makefile's flags, both started together; returns
+    {name: (path, seconds)}"""
+    os.makedirs(NATIVE_OUT, exist_ok=True)
+    src = os.path.join(REPO, "native")
+    jobs = {
+        "gen_A": [os.path.join(src, "precond_tools", "gen_A.cpp"),
+                  os.path.join(src, "precond_tools", "nc3.cpp")],
+        "libgcol.so": ["-shared", os.path.join(src, "gcol", "gcol.cpp")],
+    }
+    start = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        ["g++", *NATIVE_CXXFLAGS, "-o", os.path.join(NATIVE_OUT, name), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, args in jobs.items()}
+    built = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            print(out[-4000:], flush=True)
+            raise SystemExit(f"chip_smoke: g++ failed to build {name}")
+        built[name] = (os.path.join(NATIVE_OUT, name),
+                       time.perf_counter() - start)
+    return built
+
+
+def start_gen_a(gen_a, work, grid):
+    """write the synthetic circulation at `grid` and its grid vars, and
+    start gen_A on them; returns the job for wait_gen_a"""
+    circ = synthetic.gen_circulation(*grid)
+    circ_fname = os.path.join(work, "irf.nc")
+    grid_fname = os.path.join(work, "grid_vars.nc")
+    synthetic.write_circulation(circ_fname, circ)
+    synthetic.write_grid_vars(grid_fname, circ)
+    opts_fname = os.path.join(work, "matrix.opts")
+    with open(opts_fname, "w") as fptr:
+        fptr.write("\n".join([*PRECOND_OPTS, f"reg_fname {grid_fname}",
+                              f"circ_fname {circ_fname}"]) + "\n")
+    matrix_fname = os.path.join(work, "matrix.nc")
+    with open(os.path.join(work, "gen_A.log"), "w") as log:
+        proc = subprocess.Popen([gen_a, "-o", opts_fname, matrix_fname],
+                                stdout=log, stderr=subprocess.STDOUT)
+    return proc, matrix_fname
+
+
+def wait_gen_a(job):
+    """wait for a gen_A job; returns its matrix file and gen_A's CPU seconds
+    (one thread: its run time, whatever ran beside it)"""
+    proc, matrix_fname = job
+    _pid, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    if proc.returncode != 0:
+        with open(os.path.join(os.path.dirname(matrix_fname),
+                               "gen_A.log")) as fptr:
+            print(fptr.read()[-4000:], flush=True)
+        raise SystemExit(f"chip_smoke: gen_A exited {proc.returncode}")
+    return matrix_fname, usage.ru_utime + usage.ru_stime
+
+
+def read_matrix(matrix_fname):
+    """a gen_A matrix file's CSR arrays, row map, grid_nhoriz and name"""
+    with port_ncio.NCFile(matrix_fname) as fptr:
+        return {
+            "row_ptr": fptr.var("row_ptr")[:].astype(np.int64),
+            "col_ind": fptr.var("col_ind")[:].astype(np.int64),
+            "data": np.asarray(fptr.var("data")[:], np.float64),
+            "row_to_cell": fptr.var("row_to_cell")[:].astype(np.int64),
+            "nhoriz": fptr.dimensions["grid_nhoriz"],
+            "fname": matrix_fname,
+        }
+
+
+def csr_on(mat, device):
+    """the matrix as a float64 torch CSR tensor on `device`"""
+    n = len(mat["row_ptr"]) - 1
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(mat["row_ptr"]), torch.as_tensor(mat["col_ind"]),
+        torch.as_tensor(mat["data"]), size=(n, n), dtype=torch.float64,
+        device=device, check_invariants=True)
+
+
+def true_resid(a_dev, x, b):
+    """max over the right-hand sides of |b - A x| / |b|, A's product on its
+    device in float64"""
+    worst = 0.0
+    for x_i, b_i in zip(x, b):
+        b_t = torch.as_tensor(b_i, device=a_dev.device)
+        r = b_t - a_dev @ torch.as_tensor(x_i, device=a_dev.device)
+        worst = max(worst, float(r.norm() / b_t.norm()))
+    return worst
+
+
+class SolveLog(logging.Handler):
+    """the messages of ops/sparse.py's `solve_csr_systems:` lines"""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def precond_gx3(mat, host, device):
+    """phase 20 (a): every route of solve_csr_systems at gx3 on the card and
+    the sharded line and mixed solves on 4 shards of the card, against the
+    host side's line solve on the CPU"""
+    grid_args = {"row_to_cell": mat["row_to_cell"], "nhoriz": mat["nhoriz"]}
+    csr = (mat["row_ptr"], mat["col_ind"], mat["data"])
+    rhs = gx3_rhs(mat)
+    mesh = make_mesh(1, 4, devices=[device] * 4)
+    routes = {
+        "line": lambda: sparse.solve_csr_systems(
+            *csr, rhs, return_iters=True, device=device, **grid_args),
+        "mixed": lambda: sparse.solve_csr_systems(
+            *csr, rhs, return_iters=True, mixed_precision=True, device=device,
+            **grid_args),
+        "jacobi": lambda: sparse.solve_csr_systems(
+            *csr, rhs, return_iters=True, precond="jacobi",
+            max_iter=JACOBI_CAP, device=device, **grid_args),
+        "ell": lambda: sparse.solve_csr_systems(
+            *csr, rhs, return_iters=True, max_iter=JACOBI_CAP, device=device),
+        "sharded line": lambda: solve_csr_systems_sharded(
+            *csr, rhs, mesh=mesh, return_iters=True, **grid_args),
+        "sharded mixed": lambda: solve_csr_systems_sharded(
+            *csr, rhs, mesh=mesh, return_iters=True, mixed_precision=True,
+            **grid_args),
+    }
+    res = {}
+    for name, run in routes.items():
+        start = time.perf_counter()
+        x, ok, iters = run()
+        res[name] = (x, ok, iters, time.perf_counter() - start)
+    cpu = host["cpu line"]
+    res["cpu line"] = (np.load(cpu["x"]), np.array(cpu["converged"]),
+                       np.array(cpu["iterations"]), cpu["seconds"])
+    a_dev = csr_on(mat, device)
+    resid = {name: true_resid(a_dev, x, rhs)
+             for name, (x, ok, _, _) in res.items() if ok.all()}
+    scale = float(np.abs(res["line"][0]).max())
+
+    def diff(a, b):
+        return float(np.abs(res[a][0] - res[b][0]).max()) / scale
+
+    def spread(a, b):
+        return int(np.abs(res[a][2].astype(int) - res[b][2]).max())
+
+    diffs = {"mixed vs line": diff("mixed", "line"),
+             "sharded line vs line": diff("sharded line", "line"),
+             "sharded mixed vs mixed": diff("sharded mixed", "mixed"),
+             "card vs cpu line": diff("line", "cpu line")}
+    iter_spread = {"sharded line vs line": spread("sharded line", "line"),
+                   "sharded mixed vs mixed": spread("sharded mixed", "mixed"),
+                   "card vs cpu line": spread("line", "cpu line")}
+    phase(20, f"(a) gx3 {PRECOND_GX3}: {len(mat['row_ptr']) - 1} rows, "
+              f"{len(mat['data'])} nonzeros, 2 rhs (the CPU line solve on the "
+              "host side)",
+          gen_a_cpu_s=host["gen_a_cpu_s"]["gx3"],
+          iterations={k: v[2].tolist() for k, v in res.items()},
+          converged={k: bool(v[1].all()) for k, v in res.items()},
+          seconds={k: round(v[3], 3) for k, v in res.items()},
+          true_rel_resid={k: f"{v:.3e}" for k, v in resid.items()},
+          rel_diff={k: f"{v:.3e}" for k, v in diffs.items()},
+          iteration_spread=iter_spread)
+    must_converge = ("line", "mixed", "sharded line", "sharded mixed",
+                     "cpu line")
+    if not (all(res[name][1].all() for name in must_converge)
+            and all(v <= PRECOND_RESID_TOL for v in resid.values())
+            and all(v <= PRECOND_X_TOL for v in diffs.values())
+            and iter_spread["sharded line vs line"] <= LINE_ITER_SPREAD
+            and iter_spread["sharded mixed vs mixed"] <= MIXED_ITER_SPREAD
+            and iter_spread["card vs cpu line"] <= CPU_ITER_SPREAD):
+        raise SystemExit("chip_smoke: the gx3 precond solves failed a gate")
+
+
+def precond_gx1(mat, gen_a_s, work, device):
+    """phase 20 (b): the gx1 precond matrix through the adapter's own
+    _device_solve_matrix in the default line mode"""
+    n_rows = len(mat["row_ptr"]) - 1
+    nz, nlat, nlon = PRECOND_GX1
+    rhs = np.random.default_rng(19).normal(size=n_rows)
+    grid = np.zeros(nz * nlat * nlon)
+    grid[mat["row_to_cell"]] = rhs
+    state_fname = os.path.join(work, "state.nc")
+    with port_ncio.NCFile(state_fname, mode="w") as fptr:
+        fptr.create_dimensions_verify({"z_t": nz, "nlat": nlat, "nlon": nlon})
+        for suffix, vals in (("CUR", grid), ("OLD", np.zeros_like(grid))):
+            fptr.create_variable(f"IAGE_{suffix}", "f8", ("z_t", "nlat", "nlon"))[
+                :] = vals.reshape(nz, nlat, nlon)
+    log = SolveLog()
+    sparse_logger = logging.getLogger(sparse.__name__)
+    sparse_logger.addHandler(log)
+    sparse_logger.setLevel(logging.INFO)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # under the profiler (device activity): the solve's kernel launches and
+    # their device time, for the iteration's launches and its bound
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    start = time.perf_counter()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            cime_state._device_solve_matrix(mat["fname"], state_fname,
+                                            ["IAGE_CUR"], device=device)
+    finally:
+        sparse_logger.removeHandler(log)
+    total_s = time.perf_counter() - start
+    launches, device_us = cuda_kernels(prof)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else "not measured")
+    offsets, regroup_s, solve_s, iters = SOLVE_LINE.search(
+        log.lines[-1]).groups()
+    with port_ncio.NCFile(state_fname) as fptr:
+        cur = np.asarray(fptr.var("IAGE_CUR")[:], np.float64)
+        old = np.asarray(fptr.var("IAGE_OLD")[:], np.float64)
+    x = cur.reshape(-1)[mat["row_to_cell"]]
+    resid = true_resid(csr_on(mat, device), x[None], rhs[None])
+    n_iter = int(iters)
+    bound_ms = 1e3 * bicgstab_iteration_bytes(
+        nz * nlat * nlon, int(offsets)) / PEAK_BYTES_PER_S
+    phase(20, f"(b) gx1 {PRECOND_GX1} through _device_solve_matrix (line, "
+              "under torch.profiler)",
+          rows=n_rows, nonzeros=len(mat["data"]), offsets=offsets,
+          gen_a_cpu_s=gen_a_s, regroup_s=regroup_s,
+          solve_s=solve_s, call_s=round(total_s, 2), iterations=iters,
+          kernel_launches=launches,
+          launches_an_iteration=(None if launches is None
+                                 else round(launches / n_iter, 1)),
+          device_ms_an_iteration=(None if device_us is None
+                                  else round(device_us / 1e3 / n_iter, 4)),
+          bound_ms_an_iteration=round(bound_ms, 4), bound_by="bytes",
+          true_rel_resid=f"{resid:.3e}", old_equals_cur=bool((old == cur).all()),
+          max_memory_allocated=peak)
+    if not (resid <= PRECOND_RESID_TOL and (old == cur).all()):
+        raise SystemExit("chip_smoke: the gx1 precond solve failed a gate")
+
+
+def bicgstab_iteration_bytes(n_cells, n_offsets):
+    """the float64 bytes one line-preconditioned BiCGSTAB iteration on the
+    full grid must move, each input read once and each output written once:
+    two DIA matvecs (the diagonals and x read, y written), two line solves
+    (three bands and v read, the solution written), five dot products (8
+    vectors read) and the p, s, x and r updates (14 read or written)"""
+    return 8 * n_cells * (2 * (n_offsets + 2) + 2 * 5 + 8 + 14)
+
+
+def cuda_kernels(prof):
+    """(kernel launches, their device microseconds) in a profile, or
+    (None, None) when the profiler saw no device activity"""
+    kernels = [evt for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not evt.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        return None, None
+    return len(kernels), sum(evt.time_range.elapsed_us() for evt in kernels)
+
+
+def load_mock_case():
+    """tests/cime_mock_case.py, the mock CIME case (it imports no jax)"""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "cime_mock_case", os.path.join(REPO, "tests", "cime_mock_case.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def mock_cime_solve(mock, work, device):
+    """the mock CIME case's Newton solve through the port's adapter with
+    precond_solver_mode=device on `device`; (counts, max error, restarts,
+    seconds)"""
+    import pathlib
+
+    start = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=work))
+    config = mock.build_config(tmp, mock.build_case(tmp), "device")
+    config["modelinfo"]["device"] = str(device)
+    cime_state.ModelState.model_config_obj = port_model_config.ModelConfig(
+        config["modelinfo"])
+    solver, restarts = mock.run_solve(port_newton.NewtonSolver,
+                                      cime_state.ModelState,
+                                      config["solverinfo"])
+    iterate = solver._iterate.tracer_modules[0].get_tracer_vals("IAGE")
+    err = float(np.abs(iterate - mock.FIXED_POINT).max())
+    counts = mock.solve_counts(str(tmp / "workdir"))
+    return counts, err, restarts, time.perf_counter() - start
+
+
+def precond_probe(mat, device):
+    """phase 20 (d): probe_jacobian recovers a small gen_A matrix from
+    dia_matvec on the card, through the native gCol library"""
+    from scipy import sparse as sp
+
+    n_rows = len(mat["row_ptr"]) - 1
+    n_cells = int(np.prod(PRECOND_PROBE))
+    offsets, coefs = sparse.grid_dia_from_csr(
+        mat["row_ptr"], mat["col_ind"], mat["data"], mat["row_to_cell"],
+        n_cells)
+    coefs = torch.as_tensor(coefs, device=device)
+    cells = torch.as_tensor(mat["row_to_cell"], device=device)
+
+    def jvp(v):
+        full = torch.zeros(n_cells, dtype=torch.float64, device=device)
+        full[cells] = v
+        return sparse.dia_matvec(offsets, coefs, full)[cells]
+
+    pattern = sp.csr_matrix((np.ones(len(mat["data"])), mat["col_ind"],
+                             mat["row_ptr"]), shape=(n_rows, n_rows))
+    dense = sp.csr_matrix((mat["data"], mat["col_ind"], mat["row_ptr"]),
+                          shape=(n_rows, n_rows))
+    start = time.perf_counter()
+    jac, n_colors = probing.probe_jacobian(jvp, pattern, device=device)
+    probe_s = time.perf_counter() - start
+    dense = dense.toarray()
+    err = float(np.abs(jac - dense).max() / np.abs(dense).max())
+    lib_path = probing.gcol_library()[1]
+    phase(20, f"(d) probing {PRECOND_PROBE}: {n_rows} rows",
+          colors=n_colors, rel_err=f"{err:.3e}", seconds=round(probe_s, 2),
+          gcol_library=lib_path)
+    if not (err <= PROBE_TOL
+            and lib_path == os.path.join(NATIVE_OUT, "libgcol.so")):
+        raise SystemExit("chip_smoke: probing failed its gates")
+
+
+def gx3_rhs(mat):
+    """phase 20 (a)'s two seeded right-hand sides"""
+    return np.random.default_rng(17).normal(size=(2, len(mat["row_ptr"]) - 1))
+
+
+def precond_host(work):
+    """phase 20's host side, in a process of its own beside the card's
+    phases: the g++ builds, gen_A at gx3, at probing's extent and at gx1
+    (each on a core of its own), then the gx3 line solve and the mock CIME
+    case on the CPU"""
+    built = build_native()
+    gen_a = built["gen_A"][0]
+    jobs = {}
+    for name, grid in (("gx3", PRECOND_GX3), ("probe", PRECOND_PROBE),
+                       ("gx1", PRECOND_GX1)):
+        os.makedirs(os.path.join(work, name))
+        jobs[name] = start_gen_a(gen_a, os.path.join(work, name), grid)
+    out = {"build_s": {name: round(sec, 1) for name, (_, sec) in built.items()},
+           "gen_a_cpu_s": {}}
+    fname, out["gen_a_cpu_s"]["gx3"] = wait_gen_a(jobs.pop("gx3"))
+    out["gx3"] = fname
+    mat = read_matrix(fname)
+    start = time.perf_counter()
+    x, ok, iters = sparse.solve_csr_systems(
+        mat["row_ptr"], mat["col_ind"], mat["data"], gx3_rhs(mat),
+        return_iters=True, device="cpu", row_to_cell=mat["row_to_cell"],
+        nhoriz=mat["nhoriz"])
+    out["cpu line"] = {"x": os.path.join(work, "gx3", "x_cpu.npy"),
+                       "converged": ok.tolist(), "iterations": iters.tolist(),
+                       "seconds": round(time.perf_counter() - start, 3)}
+    np.save(out["cpu line"]["x"], x)
+    counts, err, restarts, seconds = mock_cime_solve(load_mock_case(), work,
+                                                     "cpu")
+    out["cpu mock"] = {"counts": counts, "max_err": err, "restarts": restarts,
+                       "seconds": round(seconds, 1)}
+    for name, job in jobs.items():
+        out[name], out["gen_a_cpu_s"][name] = wait_gen_a(job)
+    out["gen_a_cpu_s"] = {k: round(v, 2) for k, v in out["gen_a_cpu_s"].items()}
+    return out
+
+
+def precond_phase(device, host):
+    """phase 20: the cime_pop adapter's on-device preconditioner solves
+    (no kernel of their own) -- gx3 by every route, gx1 through the
+    adapter, the mock CIME case on the card against the CPU, probing; the
+    host side (`host`, precond_host's CpuCheck) ran beside the earlier
+    phases"""
+    start = time.perf_counter()
+    res = host.result()
+    split = {"host side wait": time.perf_counter() - start}
+    phase(20, "host side (g++ builds with the Makefile's flags, gen_A, the "
+              "CPU solves; beside the card's phases, one thread)",
+          build_s=res["build_s"], gen_a_cpu_s=res["gen_a_cpu_s"],
+          cpu_line_s=res["cpu line"]["seconds"],
+          cpu_mock_s=res["cpu mock"]["seconds"], seconds=host.seconds)
+    work = background_dir("chip_smoke_precond_")
+    try:
+        precond_gx3(read_matrix(res["gx3"]), res, device)
+        split["gx3"] = time.perf_counter() - start - sum(split.values())
+        precond_probe(read_matrix(res["probe"]), device)
+        split["probe"] = time.perf_counter() - start - sum(split.values())
+        mock = load_mock_case()
+        card = mock_cime_solve(mock, work, device)
+        split["mock"] = time.perf_counter() - start - sum(split.values())
+        precond_gx1(read_matrix(res["gx1"]), res["gen_a_cpu_s"]["gx1"], work,
+                    device)
+        split["gx1"] = time.perf_counter() - start - sum(split.values())
+    finally:
+        cime_state.ModelState.model_config_obj = None
+    cpu = res["cpu mock"]
+    cpu_counts = (cpu["counts"][0], cpu["counts"][1])
+    phase(20, "(c) the mock CIME case, precond_solver_mode=device",
+          card_counts=card[0], cpu_counts=cpu_counts, card_max_err=card[1],
+          cpu_max_err=cpu["max_err"], restarts=card[2],
+          card_seconds=round(card[3], 1), cpu_seconds=cpu["seconds"])
+    phase(20, "cime_pop precond solves",
+          seconds_split={k: round(v, 1) for k, v in split.items()},
+          seconds=round(time.perf_counter() - start, 1))
+    # the JAX test's gate: the mock model's fixed point within 1e-8
+    tol = 1e-8 * mock.FIXED_POINT
+    if not (tuple(card[0]) == cpu_counts and card[1] <= tol
+            and cpu["max_err"] <= tol):
+        raise SystemExit("chip_smoke: the mock CIME case failed its gates")
+
+
+CPU_CHECKS = {"iage_f64": iage_f64_check, "precond_host": precond_host}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="drive the port's paths through its CUDA kernels on one card")
-    parser.add_argument("--phases", type=int, nargs="+", choices=range(20),
-                        default=list(range(20)),
+    parser.add_argument("--phases", type=int, nargs="+", choices=range(21),
+                        default=list(range(21)),
                         help="phases to run (0 and 1 always run); the JSON "
                              "lines need them all")
-    phases = set(parser.parse_args(argv).phases) | {0, 1}
+    parser.add_argument("--cpu-check", nargs=2, metavar=("NAME", "DIR"),
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.cpu_check:
+        run_cpu_check(*args.cpu_check)
+        return 0
+    phases = set(args.phases) | {0, 1}
     # -- 0: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2902,6 +3493,20 @@ def main(argv=None):
           torch=torch.__version__, cuda=torch.version.cuda, tf32="off")
     print(smi, flush=True)
 
+    try:
+        return run_phases(phases, device, kind)
+    finally:
+        CpuCheck.stop_all()
+        for work in BACKGROUND_DIRS:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(phases, device, kind):
+    """phases 1 to 20 and the JSON lines"""
+    # phase 20's host side (the native builds, gen_A, the CPU solves) runs
+    # beside the build and the card's phases
+    host = (CpuCheck("precond_host", background_dir("chip_smoke_host_"))
+            if 20 in phases else None)
     # -- 1: build every kernel from the checkout's sources, all at once
     start = time.perf_counter()
     built = imex_cuda.build_libraries()
@@ -2918,7 +3523,7 @@ def main(argv=None):
     runs = {
         # 2, 3: the iage kernel, then the iage spin-up
         2: lambda: iage_kernel_phase(depth, ypos, device),
-        3: lambda: iage_solve_phase(depth, ypos, device),
+        3: iage_solve_phase,
         # 4, 5: the phosphorus kernel, then the phosphorus spin-up
         4: lambda: phosphorus_kernel_phase(depth, ypos, device),
         5: lambda: phosphorus_solve_phase(depth, ypos, device),
@@ -2948,6 +3553,8 @@ def main(argv=None):
         18: lambda: sharded_phosphorus_phase(device),
         # 19: irf_offline's file-backed path (no kernel of its own)
         19: lambda: irf_offline_phase(device),
+        # 20: the cime_pop adapter's preconditioner solves (no kernel)
+        20: lambda: precond_phase(device, host),
     }
     results, seconds = {}, {}
     for num, run in runs.items():
@@ -2955,8 +3562,10 @@ def main(argv=None):
             start = time.perf_counter()
             results[num] = run()
             seconds[num] = round(time.perf_counter() - start, 1)
+    for gate in DEFERRED:
+        gate()
     print(f"chip_smoke seconds by phase: {json.dumps(seconds)}", flush=True)
-    if phases != set(range(20)):
+    if phases != set(range(21)):
         print(f"chip_smoke: phases {sorted(phases)} passed; the JSON lines "
               "need every phase", flush=True)
         return 0
